@@ -1,14 +1,30 @@
-"""Tests of the port that need the card: kernel B1 against its plain
-version on the GPU, the wrapper's launch accounting and checks, and the
-engine on the card against the engine on the CPU.
+"""Tests of the port that need the card: kernels B1 and B2 against their
+plain versions on the GPU, the wrapper's launch accounting and checks, and
+the engine (short and strict modes) on the card against the engine on the
+CPU.
 
 Run on a machine with a CUDA GPU and nvcc:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
-Elsewhere every test skips.  Tolerances as in ``test_torch_muskingum.py``
-and ``test_torch_engine.py``; the kernel and the plain version on one card
-share libdevice's ``pow``, so they agree lane for lane.
+Elsewhere every test skips.  Tolerances as in ``test_torch_muskingum.py``,
+``test_torch_engine.py`` and ``test_torch_strict.py``; a kernel and its
+plain version on one card share libdevice's ``pow``, so they agree lane for
+lane (B2 bit for bit in f32).
+
+The strict engine, card against CPU, starts from one warm state (12 short
+steps on the CPU), as production strict windows do: f64 rtol 1e-9 with
+atol 1e-8 (ten times ``strict_tol``: a chunk boundary that falls on the
+other side of the tolerance moves the committed iterate by
+O(strict_tol)); f32 the f32 bar (rel diff median <= 1e-6, p95 <= 1e-5,
+max <= 5e-2) with at most 1e-3 of the values past rtol/atol 1e-4.  The
+f32 secant stops on a relative step, so its result jumps where a last-ulp
+difference changes its trip count, and the strict fixed point moves with
+it: on the CPU alone, the JAX package and the port from the same warm
+state put 30 of this case's 60,000 f32 values past rtol/atol 1e-4 (max
+rel 9.3e-4), flows among them.  From a cold random start even f64 lanes
+jump: the JAX package and the port on the CPU reach fixed points 0.071
+apart on 28 of 60,000 values, as the card and the CPU do.
 """
 
 import numpy as np
@@ -19,8 +35,9 @@ import bench
 from chip_smoke import conus_range_inputs
 from troute_torch.network.topology import build_topology_postorder
 from troute_torch.ops import muskingum_cuda
+from troute_torch.ops import muskingum as mc
 from troute_torch.ops.levelpool import LevelpoolParams
-from troute_torch.ops.muskingum import solve_block
+from troute_torch.ops.muskingum import MCOutput, solve_block, solve_block_skip
 from troute_torch.routing import engine
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +128,128 @@ def test_route_stepped_card_matches_cpu(cuda, dtype):
             rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-6)
             assert np.median(rel) <= 1e-6 and np.percentile(rel, 95) <= 1e-5
             assert rel.max() <= 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("diagnostics", [True, False])
+def test_skip_kernel_matches_plain_on_card(cuda, dtype, diagnostics):
+    """B2 against ``solve_block_skip`` on the card, a partial last block
+    included: f32 bit for bit, f64 rtol 1e-9; active blocks equal B1,
+    inactive blocks equal ``prev`` exactly."""
+    n = 64 * muskingum_cuda.SKIP_BLOCK + 77
+    args = _conus_range(n, dtype, cuda)
+    full = muskingum_cuda.muskingum_cunge_cuda(*args, DT)
+    prev = MCOutput(*[o + 7.0 + k for k, o in enumerate(full)])
+    rng = np.random.default_rng(5)
+    active = torch.as_tensor(rng.random(n) < 0.002, device=cuda)
+    before = muskingum_cuda.SKIP_LAUNCHES
+    got = muskingum_cuda.muskingum_cunge_cuda(
+        *args, DT, with_diagnostics=diagnostics, active_rows=active,
+        prev=prev)
+    torch.cuda.synchronize()
+    assert muskingum_cuda.SKIP_LAUNCHES == before + 1
+    ran = muskingum_cuda.block_active_lanes(active)
+    assert 0 < int(ran.sum()) < n
+    want = solve_block_skip(*args, dt=DT, ran=ran, prev=prev)
+    n_out = 6 if diagnostics else 3
+    ran = ran.cpu().numpy()
+    for k in range(n_out):
+        g, w = got[k].cpu().numpy(), want[k].cpu().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-12)
+        np.testing.assert_array_equal(g[ran], full[k].cpu().numpy()[ran])
+        np.testing.assert_array_equal(g[~ran], prev[k].cpu().numpy()[~ran])
+    for g in got[n_out:]:
+        assert not bool(g.any())
+
+
+def _strict_case(n, seed):
+    ids, down = bench.synthetic_conus(n=n, n_basins=50)
+    rng = np.random.default_rng(seed)
+    nt = np.zeros(n, np.int8)
+    nt[rng.choice(np.flatnonzero(np.isin(ids, down)), 5, replace=False)] = 1
+    topo = build_topology_postorder(ids, down, node_type=nt)
+    chan = bench.channel_params(n, rng)
+    lp = [rng.uniform(1.0, 3.0, 5)] + [np.full(5, v) for v in (
+        12.0, 1.2, 0.1, 8.0, 0.4, 11.0, 12.0, 10.0)]
+    q0, d0 = rng.uniform(0.5, 5.0, n), rng.uniform(0.05, 0.8, n)
+    d0[topo.reservoir_rows] = 10.5
+    gage_rows = rng.choice(np.flatnonzero(nt == 0), 10, replace=False)
+    obs = rng.uniform(1.0, 10.0, (5, 10))
+    obs[rng.random(obs.shape) < 0.4] = np.nan
+    return topo, chan, lp, q0, d0, rng.uniform(0.1, 2.0, (2, n)), \
+        gage_rows, obs
+
+
+def _route_strict(case, cfg, dtype, device, warm=None):
+    """``route_stepped`` on ``case`` from its initial state, or from the
+    ``RoutingState`` ``warm`` (copied to ``device``)."""
+    topo, chan, lp, q0, d0, qlat, gage_rows, obs = case
+
+    def t(a, dt=dtype):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=device, dtype=dt)
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    if warm is None:
+        warm = engine.RoutingState(q=q0, depth=d0, res_elev=np.full(5, 10.5),
+                                   lastobs_val=np.full(10, 2.0),
+                                   lastobs_time=np.full(10, -600.0))
+    da = engine.GageDA(rows=t(gage_rows, torch.int64), obs=t(obs),
+                       lastobs_val=t(warm.lastobs_val),
+                       lastobs_time=t(warm.lastobs_time), decay_coeff=120.0)
+    return engine.route_stepped(
+        engine.network_arrays_from_topology(topo, device=device),
+        engine.ChannelParams.from_arrays(device=device, dtype=dtype, **chan),
+        LevelpoolParams(*[t(v) for v in lp]), cfg, t(warm.q), t(warm.depth),
+        t(warm.res_elev), t(qlat), da)
+
+
+def _assert_f32_bar(got, want):
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-6)
+    assert np.median(rel) <= 1e-6 and np.percentile(rel, 95) <= 1e-5
+    assert rel.max() <= 5e-2
+    off = ~np.isclose(got, want, rtol=1e-4, atol=1e-4)
+    assert off.sum() <= 1e-3 * off.size, int(off.sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("gs", [False, True])
+def test_strict_card_matches_cpu_and_counts(cuda, dtype, gs, monkeypatch):
+    """Strict ``route_stepped`` (block skip and accelerator on, or GS) on
+    the card against the CPU from one warm state; the card's B1 and B2
+    launches equal the driver's own MC call counts, and the plain
+    ``solve_block`` never runs on a CUDA tensor."""
+    case = _strict_case(5000, 6)
+    warm = _route_strict(case, engine.RoutingConfig(
+        dt=DT, nts=12, qts_subdivisions=6, assume_short_ts=True), dtype,
+        "cpu")["state"]
+    cfg = engine.RoutingConfig(dt=DT, nts=4, qts_subdivisions=2,
+                               assume_short_ts=False, strict_iterative=True,
+                               strict_block_skip=True, strict_gs=gs)
+    plain = mc.solve_block
+
+    def cpu_only(*a, **kw):
+        assert a[0].device.type == "cpu", "plain solve on a CUDA tensor"
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(mc, "solve_block", cpu_only)
+    b1, b2 = muskingum_cuda.LAUNCHES, muskingum_cuda.SKIP_LAUNCHES
+    card = _route_strict(case, cfg, dtype, cuda, warm)
+    torch.cuda.synchronize()
+    calls = card["strict_mc_calls"]
+    assert muskingum_cuda.LAUNCHES - b1 == calls["mc_secant"]
+    assert muskingum_cuda.SKIP_LAUNCHES - b2 == calls["mc_secant_skip"]
+    assert (calls["mc_secant_skip"] > 0) == (not gs)
+    cpu = _route_strict(case, cfg, dtype, "cpu", warm)
+    # every output value of the run as one vector, as chip_smoke.py does
+    got, want = [np.concatenate([out[k].cpu().numpy().ravel()
+                                 for k in ("flowveldepth", "nudge")])
+                 for out in (card, cpu)]
+    assert np.isfinite(got).all()
+    if dtype == torch.float64:
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-8)
+    else:
+        _assert_f32_bar(got, want)

@@ -187,5 +187,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         strided = torch.stack([arrs[0], arrs[0]], dim=1)[:, 0]
         call(strided, *arrs[1:], DT)
-    with pytest.raises(NotImplementedError, match="B2"):
+    # the block-skip form needs both its flags and the previous outputs
+    with pytest.raises(ValueError, match="together"):
         call(*arrs, DT, active_rows=torch.ones(8, dtype=torch.bool))

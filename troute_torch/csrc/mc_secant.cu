@@ -23,10 +23,25 @@
 // plain one-thread-per-lane design: no compaction of stragglers, no
 // shared memory.
 //
+// Kernel B2, `mc_secant_skip_kernel`, replaces `_mc_block_kernel_skip` of
+// the same Pallas file (launched by `_mc_pallas_padded_skip`), the
+// active-set form used by strict fixed-point sweeps: a block whose int32
+// activity flag is 0 copies the previous call's outputs through instead of
+// solving.  Here a flag covers one CUDA block of kThreads (256) lanes, so
+// the branch is uniform per block; an active block runs the same
+// `solve_lane` as B1, so the two kernels cannot drift apart.  `prev` comes
+// in the order of the outputs (qdc, velc, depthc, ck, cn, x); the TPU
+// wrapper hands it over with ck and cn swapped (muskingum_pallas.py:172-173),
+// which the port does not copy.  An inactive block moves 3 or 6 values per
+// lane and no more, so a sweep with few active blocks is bound by those
+// copies and by the active blocks' slowest warps.
+//
 // C interface (loaded with ctypes): mc_secant_f32 / mc_secant_f64 take the
 // 13 input pointers, dt, the 6 output pointers (ck, cn, x may be null to
 // skip the diagnostics), the lane count and the CUDA stream, launch on that
-// stream and return cudaGetLastError().
+// stream and return cudaGetLastError().  mc_secant_skip_f32 / _f64 take, after
+// the outputs, the 6 `prev` pointers (the last 3 null with the outputs') and
+// the [ceil(nseg / 256)] int32 flags.
 
 #include <cfloat>
 #include <cstdint>
@@ -180,12 +195,16 @@ template <typename T> struct Outputs {
   T* __restrict__ ck; T* __restrict__ cn; T* __restrict__ x;  // null: skip
 };
 
+template <typename T> struct Prev {  // a previous call's outputs, in their order
+  const T* __restrict__ qdc; const T* __restrict__ velc; const T* __restrict__ depthc;
+  const T* __restrict__ ck; const T* __restrict__ cn; const T* __restrict__ x;
+};
+
+// the whole solve of lane i, shared by both kernels so they cannot drift
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mc_secant_kernel(Inputs<T> in, T dt, Outputs<T> out, int64_t nseg) {
+__device__ __forceinline__ void solve_lane(const Inputs<T>& in, T dt, const Outputs<T>& out,
+                                           int64_t i) {
   using M = Math<T>;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= nseg) return;
   const T mindepth = T(0.01);
   const T p23 = T(2.0 / 3.0), p53 = T(5.0 / 3.0);
 
@@ -290,6 +309,36 @@ mc_secant_kernel(Inputs<T> in, T dt, Outputs<T> out, int64_t nseg) {
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mc_secant_kernel(Inputs<T> in, T dt, Outputs<T> out, int64_t nseg) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nseg) return;
+  solve_lane(in, dt, out, i);
+}
+
+// Block-skip variant: block b solves its lanes when active[b] != 0, else
+// copies its lanes of `prev` (same order as the outputs) through.  One flag
+// per CUDA block, so the branch is uniform across the block.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mc_secant_skip_kernel(Inputs<T> in, T dt, Outputs<T> out, Prev<T> prev,
+                      const int32_t* __restrict__ active, int64_t nseg) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nseg) return;
+  if (active[blockIdx.x] != 0) {
+    solve_lane(in, dt, out, i);
+    return;
+  }
+  out.qdc[i] = prev.qdc[i];
+  out.velc[i] = prev.velc[i];
+  out.depthc[i] = prev.depthc[i];
+  if (out.ck == nullptr) return;
+  out.ck[i] = prev.ck[i];
+  out.cn[i] = prev.cn[i];
+  out.x[i] = prev.x[i];
+}
+
+template <typename T>
 int launch(const T* qup, const T* quc, const T* qdp, const T* ql, const T* dx,
            const T* bw, const T* tw, const T* twcc, const T* n, const T* ncc,
            const T* cs, const T* s0, const T* depthp, T dt, T* qdc, T* velc,
@@ -299,6 +348,23 @@ int launch(const T* qup, const T* quc, const T* qdp, const T* ql, const T* dx,
   const int64_t blocks = (nseg + kThreads - 1) / kThreads;
   mc_secant_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(in, dt, out, nseg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_skip(const T* qup, const T* quc, const T* qdp, const T* ql, const T* dx,
+                const T* bw, const T* tw, const T* twcc, const T* n, const T* ncc,
+                const T* cs, const T* s0, const T* depthp, T dt, T* qdc, T* velc,
+                T* depthc, T* ck, T* cn, T* x, const T* p_qdc, const T* p_velc,
+                const T* p_depthc, const T* p_ck, const T* p_cn, const T* p_x,
+                const int32_t* active, int64_t nseg, void* stream) {
+  Inputs<T> in = {qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp};
+  Outputs<T> out = {qdc, velc, depthc, ck, cn, x};
+  Prev<T> prev = {p_qdc, p_velc, p_depthc, p_ck, p_cn, p_x};
+  const int64_t blocks = (nseg + kThreads - 1) / kThreads;
+  mc_secant_skip_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(in, dt, out, prev,
+                                                                  active, nseg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,6 +389,33 @@ int mc_secant_f64(const double* qup, const double* quc, const double* qdp, const
                   void* stream) {
   return launch<double>(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp, dt,
                         qdc, velc, depthc, ck, cn, x, nseg, stream);
+}
+
+int mc_secant_skip_f32(const float* qup, const float* quc, const float* qdp, const float* ql,
+                       const float* dx, const float* bw, const float* tw, const float* twcc,
+                       const float* n, const float* ncc, const float* cs, const float* s0,
+                       const float* depthp, float dt, float* qdc, float* velc, float* depthc,
+                       float* ck, float* cn, float* x, const float* p_qdc,
+                       const float* p_velc, const float* p_depthc, const float* p_ck,
+                       const float* p_cn, const float* p_x, const int32_t* active,
+                       int64_t nseg, void* stream) {
+  return launch_skip<float>(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp, dt,
+                            qdc, velc, depthc, ck, cn, x, p_qdc, p_velc, p_depthc, p_ck,
+                            p_cn, p_x, active, nseg, stream);
+}
+
+int mc_secant_skip_f64(const double* qup, const double* quc, const double* qdp,
+                       const double* ql, const double* dx, const double* bw, const double* tw,
+                       const double* twcc, const double* n, const double* ncc,
+                       const double* cs, const double* s0, const double* depthp, double dt,
+                       double* qdc, double* velc, double* depthc, double* ck, double* cn,
+                       double* x, const double* p_qdc, const double* p_velc,
+                       const double* p_depthc, const double* p_ck, const double* p_cn,
+                       const double* p_x, const int32_t* active, int64_t nseg,
+                       void* stream) {
+  return launch_skip<double>(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp,
+                             dt, qdc, velc, depthc, ck, cn, x, p_qdc, p_velc, p_depthc,
+                             p_ck, p_cn, p_x, active, nseg, stream);
 }
 
 }  // extern "C"

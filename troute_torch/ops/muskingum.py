@@ -16,11 +16,11 @@ its quirks:
 * no-flow lanes come out exactly 0;
 * the Courant diagnostics are taken from the final depth.
 
-This is the plain version of the hand-written CUDA kernel in
-``troute_torch/csrc/mc_secant.cu``: the kernel's wrapper
-(``ops/muskingum_cuda.py``) runs it for CPU tensors, and the tests and
-``chip_smoke.py`` hold the kernel to it.  All math runs in the dtype of
-the inputs.
+``solve_block`` is the plain version of the hand-written CUDA kernel B1 in
+``troute_torch/csrc/mc_secant.cu``, and ``solve_block_skip`` that of its
+block-skip form B2: the kernels' wrapper (``ops/muskingum_cuda.py``) runs
+them for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernels
+to them.  All math runs in the dtype of the inputs.
 """
 
 from __future__ import annotations
@@ -298,3 +298,19 @@ def solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     cn = ck * (dt / dx)
 
     return qdc, velc, depthc, ck, cn, x_out
+
+
+def solve_block_skip(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
+                     depthp, dt, ran, prev):
+    """``solve_block`` on every lane, then ``prev`` wherever ``ran`` is
+    False: the plain version of the block-skip kernel.
+
+    ``ran`` is the per-lane bool "this lane's block solves" (the wrapper
+    expands its block flags to lanes); ``prev`` holds a previous call's six
+    outputs in the order of the outputs.  Per-lane results of
+    ``solve_block`` do not depend on the batch, so this agrees lane for
+    lane with a kernel that solves only the active blocks.
+    """
+    solved = solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
+                         depthp, dt)
+    return tuple(torch.where(ran, s, p) for s, p in zip(solved, prev))

@@ -1,23 +1,31 @@
-"""Short-timestep Muskingum-Cunge routing engine in PyTorch.
+"""Host-stepped Muskingum-Cunge routing engine in PyTorch.
 
-Port of the short-timestep part of ``troute_tpu/routing/engine.py``: the
-NWM production mode (``assume_short_ts=True``), where every node's state at
-timestep t depends only on the state at t-1, so the whole network advances
-in one vector step per timestep.  ``route_stepped`` drives the steps from
-the host; each step (``_one_short_step``) takes the upstream flow sums,
-runs the MC secant solve through the CUDA kernel wrapper (its plain
-version for CPU tensors), then level-pool reservoirs with optional typed
-reservoir DA, then gage nudging.
+Port of ``route_stepped`` of ``troute_tpu/routing/engine.py`` in its two
+modes:
 
-Semantics follow ``mc_reach.pyx``: qup = quc = sum of upstream flows at
-t-1; lateral inflow column (t-1) // qts_subdivisions; reservoirs receive
-the upstream sum as inflow, with previous inflow = current inflow
-(``bind_lp.f90:71-72``); nudging follows ``simple_da.pyx:21-89``.
+* short timestep (``assume_short_ts=True``, the NWM production mode):
+  every node's state at timestep t depends only on the state at t-1, so
+  the whole network advances in one vector step per timestep
+  (``_one_short_step``): the upstream flow sums, the MC secant solve
+  through the CUDA kernel wrapper (its plain version for CPU tensors),
+  level-pool reservoirs with optional typed reservoir DA, gage nudging;
+* strict fixed point (``assume_short_ts=False, strict_iterative=True``):
+  the current-step upstream flow couples nodes within a timestep, and each
+  timestep iterates that step as Jacobi sweeps (with the linear
+  accelerator and the block-skip kernel as options) or Gauss-Seidel
+  column sweeps, polled from the host in chunks until the iterate stops
+  moving.
 
-The strict modes and the in-scan ``route()`` are not ported yet (ROADMAP
-A8).  Every tensor of one call lies on one device in one float dtype,
-which the caller picks; functions that build tensors take ``device`` and
-``dtype`` explicitly.
+Semantics follow ``mc_reach.pyx``: qup = sum of upstream flows at t-1, quc
+the same sum at t (at t-1 in short mode); lateral inflow column (t-1) //
+qts_subdivisions; reservoirs receive the quc sum as inflow, with previous
+inflow = current inflow (``bind_lp.f90:71-72``); nudging follows
+``simple_da.pyx:21-89``.
+
+The in-scan ``route()`` and its level-scan strict form are not ported yet
+(ROADMAP A14).  Every tensor of one call lies on one device in one float
+dtype, which the caller picks; functions that build tensors take
+``device`` and ``dtype`` explicitly.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import torch
 
 from troute_tpu.network.topology import NODE_RESERVOIR
 from troute_torch.ops.levelpool import LevelpoolParams, levelpool_step
-from troute_torch.ops.muskingum_cuda import muskingum_cunge_cuda
+from troute_torch.ops.muskingum_cuda import (block_active_lanes,
+                                             muskingum_cunge_cuda)
 from troute_torch.ops.reservoir_da import (
     GreatLakesDAState, HybridDAState, RfcDAState, typed_reservoir_dispatch)
 from troute_torch.routing.upstream_plan import UpstreamOp, build_upstream_plan
@@ -136,10 +145,12 @@ class ReservoirDAData(NamedTuple):
 
 class RoutingConfig(NamedTuple):
     """The JAX engine's configuration, field for field, so a config
-    carries across.  The port runs ``assume_short_ts=True`` only; the
-    strict-mode fields are read by nothing until the strict modes are
-    ported (ROADMAP A8/A9), and ``kernel`` is not read: the stepped engine
-    always takes the MC kernel."""
+    carries across.  ``route_stepped`` reads every field but ``kernel``:
+    the stepped engine always takes the MC kernels.  The strict fields
+    mean what they mean in the JAX package (its ``RoutingConfig``
+    comments); ``strict_accel`` "auto" is on and ``strict_block_skip``
+    "auto" is off, and both also take the strings a YAML file gives
+    ("true", "1", "off", ...)."""
 
     dt: float
     nts: int
@@ -232,25 +243,105 @@ def _apply_nudging(q, t_seconds: float, da: GageDA, lastobs_val,
     return q, nudge, new_val, new_time
 
 
+def _resolve_flag(v, auto: bool) -> bool:
+    """A strict option: "auto" gives ``auto``; strings as a YAML file
+    writes them ("true", "1", "off", ...) and other values by their truth
+    (so ``1`` and ``"true"`` turn an option on)."""
+    if isinstance(v, str):
+        word = v.strip().lower()
+        if word == "auto":
+            return auto
+        if word in ("true", "1", "yes", "on"):
+            return True
+        if word in ("false", "0", "no", "off"):
+            return False
+        raise ValueError(f"unrecognised flag value {v!r}")
+    return bool(v)
+
+
+def _accel_enabled(cfg: "RoutingConfig", stepped: bool) -> bool:
+    """Resolve ``strict_accel``: "auto" is ON for the host-stepped driver
+    and OFF for an in-scan engine, as in the JAX package."""
+    return _resolve_flag(cfg.strict_accel, stepped)
+
+
+def mc_linear_gain(ck, x, dx, dt: float, q_new=None, g_prev=None, quc=None,
+                   quc_prev=None):
+    """Per-lane linear gain dq_dc/dq_uc for the strict accelerators.
+
+    The analytic fixed-depth partial C2 = (dt/2 - Km X)/(Km(1-X) + dt/2),
+    Km = max(dt, dx/ck); with the last two sweeps' outputs and drives
+    given, the measured response (q_new - g_prev)/(quc - quc_prev) replaces
+    it where the drive moved by more than 16 eps (|quc| + 1) and the ratio
+    is a finite contraction.
+    """
+    fi = torch.finfo(ck.dtype)
+    km = torch.where(ck > 0.0,
+                     torch.clamp_min(dx / torch.clamp_min(ck, fi.tiny), dt),
+                     dt)
+    den = km * (1.0 - x) + dt / 2.0
+    gain = (dt / 2.0 - km * x) / torch.where(den != 0.0, den, 1.0)
+    if q_new is not None:
+        du = quc - quc_prev
+        resolvable = torch.abs(du) > 16.0 * fi.eps * (torch.abs(quc) + 1.0)
+        g_emp = (q_new - g_prev) / torch.where(resolvable, du, 1.0)
+        ok = resolvable & torch.isfinite(g_emp) & (torch.abs(g_emp) < 1.0)
+        gain = torch.where(ok, g_emp, gain)
+    return gain
+
+
+def accel_gain(ck, x, dx, dt: float, q_new, g_prev, quc, quc_prev,
+               emp_ok: bool):
+    """Gain for one accelerator insertion: the measured response when
+    ``emp_ok`` (``g_prev``/``quc_prev`` are the previous sweep's pair),
+    else the analytic C2 alone (at the first sweep the drive moved against
+    the previous timestep's sums, not a sweep).  Callers zero the gain on
+    reservoir and gage lanes."""
+    if not emp_ok or g_prev is None:
+        return mc_linear_gain(ck, x, dx, dt)
+    return mc_linear_gain(ck, x, dx, dt, q_new=q_new, g_prev=g_prev,
+                          quc=quc, quc_prev=quc_prev)
+
+
+def apply_linear_accel(q_new, dq, gain, sum_fn, n_terms: int):
+    """Linearized-propagation jump q* ~ q_new + sum_{j=1..n} (g .* U)^j dq,
+    with U applied by ``sum_fn`` (the upstream sum), clamped at zero like
+    the sweeps' own output."""
+    acc, lin = q_new, dq
+    for _ in range(int(n_terms)):
+        lin = gain * sum_fn(lin)
+        acc = acc + lin
+    return torch.clamp_min(acc, 0.0)
+
+
 def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
                     t_seconds: float, upstream, chan: ChannelParams,
                     res_params: LevelpoolParams, is_res, res_rows,
                     gage_rows, decay_coeff: float, dt: float, res_da=None,
                     da_states=None, month_i: int | None = None,
-                    return_courant: bool = False, uplan=None):
-    """One short-timestep routing step: upstream sums, MC kernel,
-    reservoirs (with typed DA when ``res_da`` is given), nudging.
+                    return_courant: bool = False, uplan=None, quc=None,
+                    active_rows=None, prev=None, want_raw: bool = False):
+    """One routing step: upstream sums, MC kernel, reservoirs (with typed
+    DA when ``res_da`` is given), nudging.
+
+    ``quc`` (current-step upstream sums) defaults to the previous-step
+    sums, the short-timestep approximation; the strict sweeps pass their
+    iterate's sums, and reservoirs then see current-step inflows.
+    ``active_rows``/``prev`` select the block-skip kernel (see
+    ``muskingum_cunge_cuda``).
 
     Returns (q, v, depth, res_elev, lo_val, lo_time, nudge, da_states,
-    courant); courant is [N, 3] (cn, ck, X) or None.
+    courant), plus the raw ``MCOutput`` with ``want_raw``; courant is
+    [N, 3] (cn, ck, X) or None.
     """
     up_prev = _upstream_sum_stepped(q, upstream, uplan)
-    quc = up_prev
+    if quc is None:
+        quc = up_prev
 
     out = muskingum_cunge_cuda(
         up_prev, quc, q, ql_t, chan.dx, chan.bw, chan.tw, chan.twcc,
         chan.n, chan.ncc, chan.cs, chan.s0, depth, dt,
-        with_diagnostics=return_courant)
+        with_diagnostics=return_courant, active_rows=active_rows, prev=prev)
     courant = (torch.stack([out.cn, out.ck, out.X], dim=-1)
                if return_courant else None)
 
@@ -289,8 +380,220 @@ def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
         q_new, nudge, lo_val, lo_time = _apply_nudging(
             q_new, t_seconds, da, lo_val, lo_time, obs_t)
 
-    return (q_new, v_new, d_new, res_elev, lo_val, lo_time, nudge,
-            da_states, courant)
+    res = (q_new, v_new, d_new, res_elev, lo_val, lo_time, nudge,
+           da_states, courant)
+    return res + (out,) if want_raw else res
+
+
+def _strict_sweeps(q_est, q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
+                   t_seconds: float, upstream, chan: ChannelParams,
+                   res_params: LevelpoolParams, is_res, res_rows, gage_rows,
+                   decay_coeff: float, dt: float, n_sweeps: int, res_da=None,
+                   da_states=None, month_i: int | None = None,
+                   return_courant: bool = False, uplan=None,
+                   accel_lin: int = 0, gain0=None, skip_tol=None):
+    """``n_sweeps`` Jacobi fixed-point sweeps of one strict timestep
+    (``troute_tpu/routing/engine.py:_strict_sweep_kernel``).
+
+    The previous-step state (q, depth, reservoir and DA state) stays fixed;
+    each sweep reruns the step with ``quc`` = the upstream sums of the
+    iterate ``q_est``, so reservoir inflows and nudging see current-step
+    sums.  With ``accel_lin > 0`` the iterate jumps by ``accel_lin``
+    linear terms between sweeps, never after the last one, with the gain
+    zeroed on reservoir and gage lanes; ``gain0`` (the previous step's last
+    gain) seeds the first insertion.  With ``skip_tol`` the sweeps
+    ``1 <= k < n_sweeps - 1`` run the block-skip kernel on the lanes whose
+    drive moved more than ``skip_tol`` since their block's last solve
+    (``quc_ref``); the last sweep always solves every lane.
+
+    With both, a lane the skip kernel passed through holds its output
+    while its drive moved, so the measured gain pairs each output with the
+    drive it was solved at (``quc_ref``) and a lane that was not solved
+    keeps its last gain.  The JAX kernel pairs the held output with the
+    new drive, measures a zero response there and carries it into the
+    next step (``engine.py:1093``, ``:1114-1115``), which slows the
+    accelerated iteration; the fixed point is the same.
+
+    Returns the last sweep's (q_est, v, depth, res_elev, lo_val, lo_time,
+    nudge, da_states, courant or None), then ``delta`` = max |dq| of the
+    last sweep and ``qmax`` = max |q_est|, both 0-d tensors left on the
+    device, then the last gain when ``accel_lin > 0``.
+    """
+    compute_gain = accel_lin > 0
+    quc_prev = g_prev = gain = quc_ref = raw = None
+
+    def usum(v):
+        return _upstream_sum_stepped(v, upstream, uplan)
+
+    for k in range(n_sweeps):
+        quc = usum(q_est)
+        active_rows = None
+        if skip_tol is not None and 1 <= k < n_sweeps - 1:
+            active_rows = torch.abs(quc - quc_ref) > skip_tol
+        gain_sweep = compute_gain and k < n_sweeps - 1
+        (q_new, v, d, res_elev_c, lo_val_c, lo_time_c, nudge, da_states_c,
+         courant, raw) = _one_short_step(
+            q, depth, res_elev, lo_val, lo_time, ql_t, obs_t, t_seconds,
+            upstream, chan, res_params, is_res, res_rows, gage_rows,
+            decay_coeff, dt, res_da=res_da, da_states=da_states,
+            month_i=month_i, return_courant=return_courant or gain_sweep,
+            uplan=uplan, quc=quc, active_rows=active_rows,
+            prev=raw if active_rows is not None else None, want_raw=True)
+        ran = (None if active_rows is None
+               else block_active_lanes(active_rows))
+        if skip_tol is not None:
+            quc_ref = quc if ran is None else torch.where(ran, quc, quc_ref)
+        # the drive each lane's output was solved at: quc_ref, where the
+        # skip kernel passed a lane's last output through
+        drive = quc if skip_tol is None else quc_ref
+        dq = q_new - q_est
+        delta = torch.max(torch.abs(dq))
+        q_est = q_new
+        if gain_sweep:
+            gain_k = accel_gain(raw.ck, raw.X, chan.dx, dt, q_new, g_prev,
+                                drive, quc_prev, emp_ok=k >= 1)
+            # a lane that was not solved keeps its last gain
+            gain = gain_k if ran is None else torch.where(ran, gain_k, gain)
+            if k == 0 and gain0 is not None:
+                gain = torch.where(torch.isfinite(gain0)
+                                   & (torch.abs(gain0) < 1.0), gain0, gain)
+            gain = torch.where(is_res, 0.0, gain)
+            if gage_rows.shape[0]:
+                gain = gain.index_fill(0, gage_rows, 0.0)
+            q_est = apply_linear_accel(q_est, dq, gain, usum, accel_lin)
+        if compute_gain:
+            quc_prev, g_prev = drive, q_new
+    out = (q_est, v, d, res_elev_c, lo_val_c, lo_time_c, nudge, da_states_c,
+           courant if return_courant else None, delta,
+           torch.max(torch.abs(q_est)))
+    return out + (gain,) if compute_gain else out
+
+
+def _cols(a: torch.Tensor, width: int) -> torch.Tensor:
+    """[N] -> [width, N/width], contiguous: row c is column c of the
+    [N/width, width] view, so each column solve gets contiguous lanes."""
+    return a.reshape(-1, width).t().contiguous()
+
+
+class _GSStep(NamedTuple):
+    """The inputs of one strict timestep that the GS column sweeps read,
+    laid out once per step as [C, N/C] (see ``_cols``)."""
+
+    up_prev: torch.Tensor
+    q: torch.Tensor
+    depth: torch.Tensor
+    ql: torch.Tensor
+    chan: ChannelParams
+    is_res: torch.Tensor
+    masks: torch.Tensor         # [D, C, N/C]
+    up_res: torch.Tensor        # [n_res, K] upstream rows of reservoirs
+    gmask: torch.Tensor | None  # gage lanes, and their obs / last obs
+    obs: torch.Tensor | None
+    lov: torch.Tensor | None
+    lot: torch.Tensor | None
+
+
+def _gs_step_inputs(q, depth, ql_t, obs_t, lo_val, lo_time, upstream,
+                    chan: ChannelParams, is_res, res_rows, gage_rows,
+                    uplan, width: int) -> _GSStep:
+    n = q.shape[0]
+    gage = [None] * 4
+    if gage_rows.shape[0]:
+        def scat(v, fill):
+            return _cols(q.new_full((n,), fill).index_put((gage_rows,), v),
+                         width)
+        gage = [_cols(torch.zeros(n, dtype=torch.bool, device=q.device)
+                      .index_fill(0, gage_rows, True), width),
+                scat(obs_t, float("nan")), scat(lo_val, float("nan")),
+                scat(lo_time, 0.0)]
+    d = uplan.masks.shape[0]
+    return _GSStep(
+        _cols(uplan(q), width), _cols(q, width), _cols(depth, width),
+        _cols(ql_t, width), ChannelParams(*[_cols(c, width) for c in chan]),
+        _cols(is_res, width),
+        uplan.masks.reshape(d, -1, width).permute(0, 2, 1).contiguous(),
+        upstream[res_rows], *gage)
+
+
+def _strict_gs_sweeps(q_est, g: _GSStep, res_elev, t_seconds: float,
+                      res_params: LevelpoolParams, res_rows,
+                      decay_coeff: float, dt: float, n_sweeps: int, uplan,
+                      res_da=None, da_states=None,
+                      month_i: int | None = None):
+    """``n_sweeps`` Gauss-Seidel sweeps of one strict timestep
+    (``troute_tpu/routing/engine.py:_strict_gs_sweep_kernel``).
+
+    The padded post-order rows [N] are viewed as [N/C, C]; a sweep solves
+    the C columns in turn, each over its N/C rows.  A band source at
+    displacement d <= c lies in the same row and reads this sweep's column
+    c - d; other band sources, the remainder and the reservoirs read the
+    previous iterate, so the splitting keeps the Jacobi fixed point.
+    Reservoir outflows come once per sweep from the old iterate's inflows
+    (candidate DA states discarded); nudging applies per column.  Returns
+    (q_est, delta, qmax), the last two 0-d tensors on the device.
+    """
+    width, n_rows = g.q.shape
+    n = width * n_rows
+    shifts = uplan.shifts
+    lo = max(shifts)
+    n_res = res_rows.shape[0]
+    for _ in range(n_sweeps):
+        q_old = q_est
+        if n_res:
+            inflow = torch.where(g.up_res >= 0,
+                                 q_old[torch.clamp_min(g.up_res, 0)],
+                                 0.0).sum(dim=1)
+            lp_out, lp_elev = levelpool_step(res_elev, inflow, inflow,
+                                             torch.zeros_like(inflow), dt,
+                                             res_params)
+            outflow = lp_out
+            if res_da is not None:
+                hyb_s, rfc_s, gl_s = da_states
+                outflow = typed_reservoir_dispatch(
+                    res_da.wbody_type, res_da.hybrid_obs,
+                    res_da.hybrid_obs_time, hyb_s, res_da.rfc_series,
+                    res_da.rfc_counts, res_da.rfc_use, res_da.rfc_timestep,
+                    res_da.rfc_persist_seconds, rfc_s, res_da.gl_obs,
+                    res_da.gl_obs_time, res_da.gl_climatology, gl_s,
+                    res_da.obs_lookback_hours, res_elev, inflow, lp_out,
+                    lp_elev, t_seconds, month_i, res_params.area,
+                    res_params.max_depth, res_params.orifice_elev, dt)[0]
+            overlay = _cols(q_old.new_zeros(n).index_put((res_rows,),
+                                                         outflow), width)
+        qx = torch.cat([q_old.new_zeros(lo), q_old])
+        shifted_old = [_cols(qx[lo - d:lo - d + n], width) for d in shifts]
+        rem = q_old.new_zeros(n)
+        if uplan.rem_dst.shape[0]:
+            rem = rem.index_add(0, uplan.rem_dst, q_old[uplan.rem_src])
+        rem = _cols(rem, width)
+
+        cols = []
+        for c in range(width):
+            quc_col = rem[c]
+            for di, d in enumerate(shifts):
+                src = cols[c - d] if d <= c else shifted_old[di][c]
+                quc_col = quc_col + torch.where(g.masks[di, c], src, 0.0)
+            out = muskingum_cunge_cuda(
+                g.up_prev[c], quc_col, g.q[c], g.ql[c],
+                *[p[c] for p in g.chan], g.depth[c], dt,
+                with_diagnostics=False)
+            col_q = torch.where(g.is_res[c], overlay[c] if n_res else g.q[c],
+                                out.qdc)
+            if g.gmask is not None:
+                obs_c, lov_c = g.obs[c], g.lov[c]
+                minutes = (t_seconds - g.lot[c]) / 60.0
+                weight = torch.exp(torch.abs(minutes) / -decay_coeff)
+                shift_v = (lov_c - col_q) * weight
+                have_obs = ~torch.isnan(obs_c)
+                no_mem = torch.isnan(obs_c) & torch.isnan(lov_c)
+                replaced = torch.where(
+                    have_obs, obs_c,
+                    torch.where(no_mem, col_q, col_q + shift_v))
+                col_q = torch.where(g.gmask[c], replaced, col_q)
+            cols.append(col_q)
+        q_est = torch.stack(cols).t().reshape(n)
+        delta = torch.max(torch.abs(q_est - q_old))
+    return q_est, delta, torch.max(torch.abs(q_est))
 
 
 def _pad_rows(a: torch.Tensor, pad: int, fill) -> torch.Tensor:
@@ -302,7 +605,7 @@ def route_stepped(net: NetworkArrays, chan: ChannelParams,
                   q0, depth0, res_elev0, qlat, da: GageDA | None = None,
                   res_da: ReservoirDAData | None = None,
                   collect: bool = True):
-    """Host-stepped short-timestep routing over ``cfg.nts`` steps.
+    """Host-stepped routing over ``cfg.nts`` steps.
 
     All tensors lie on ``q0.device`` in ``q0.dtype``.  ``qlat`` is
     [n_cols, N] lateral inflow, column (t-1) // qts_subdivisions.
@@ -310,11 +613,18 @@ def route_stepped(net: NetworkArrays, chan: ChannelParams,
     elevation) when ``collect`` else None, 'nudge' [nts, n_gages],
     'courant' [nts, N, 3] (cn, ck, X) with ``cfg.return_courant``, and
     'state', the final ``RoutingState``.
+
+    ``cfg.assume_short_ts`` runs the short-timestep step; otherwise
+    ``cfg.strict_iterative`` runs the strict fixed-point form
+    (``_route_strict``), which adds 'strict_sweeps' (sweeps per step) and
+    'strict_mc_calls' (MC solves per kernel form) to the dict.  The
+    level-scan strict form lives in the JAX package's ``route()``.
     """
-    if not cfg.assume_short_ts:
-        raise NotImplementedError(
-            "the port runs short-timestep mode only; the strict modes "
-            "(strict_iterative, level scan) are ROADMAP A8")
+    if not cfg.assume_short_ts and not cfg.strict_iterative:
+        raise ValueError(
+            "route_stepped supports short-timestep mode and the strict "
+            "fixed-point mode (strict_iterative=True); the level-scan "
+            "strict form lives in route() (ROADMAP A14)")
     device, dtype = q0.device, q0.dtype
     n_real = q0.shape[0]
     pad = (-n_real) % PAD_MULTIPLE
@@ -339,22 +649,54 @@ def route_stepped(net: NetworkArrays, chan: ChannelParams,
     # month per step, read on the host once instead of once per step
     month_host = (res_da.month_idx.cpu().numpy() if res_da is not None
                   else None)
-    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
 
-    q, depth, res_elev = q0, depth0, res_elev0
-    da_states = (None if res_da is None else
-                 (res_da.hybrid_state0, res_da.rfc_state0,
-                  res_da.gl_state0))
-    fvds, nudges, courants = [], [], []
-    for t in range(1, cfg.nts + 1):
-        # the row selection of the JAX stepped kernel: out-of-range qlat
-        # columns clamp, obs rows past the table are NaN, month clips
+    def step_inputs(t: int):
+        """The row selection of the JAX stepped drivers: out-of-range qlat
+        columns clamp, obs rows past the table are NaN, month clips."""
         col = min(max((t - 1) // cfg.qts_subdivisions, 0), qlat.shape[0] - 1)
-        ql_t = qlat[col]
         obs_t = da.obs[t] if have_da and t < n_obs_t else nan_obs
         month_i = (int(month_host[min(t, month_host.shape[0] - 1)])
                    if res_da is not None else None)
-        t_seconds = float(np_dtype.type(t) * np_dtype.type(cfg.dt))
+        return qlat[col], obs_t, month_i
+
+    da_states = (None if res_da is None else
+                 (res_da.hybrid_state0, res_da.rfc_state0,
+                  res_da.gl_state0))
+    args = (net, chan, res_params, cfg, q0, depth0, res_elev0, lo_val,
+            lo_time, gage_rows, decay, res_da, da_states, step_inputs,
+            collect, n_real)
+    return (_route_short if cfg.assume_short_ts else _route_strict)(*args)
+
+
+def _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time, da_states,
+            collect, fvds, nudges, courants) -> dict:
+    hyb, rfc, gl = da_states if da_states is not None else (None,) * 3
+    state = RoutingState(q=q[:n_real], depth=depth[:n_real],
+                         res_elev=res_elev, lastobs_val=lo_val,
+                         lastobs_time=lo_time, hybrid=hyb, rfc=rfc, gl=gl)
+    out = {"state": state, "flowveldepth": None, "nudge": None}
+    if collect:
+        out["flowveldepth"] = torch.stack(fvds)
+        out["nudge"] = torch.stack(nudges)
+        if cfg.return_courant:
+            out["courant"] = torch.stack(courants)
+    return out
+
+
+def _np_dtype(dtype: torch.dtype):
+    return torch.empty(0, dtype=dtype).numpy().dtype.type
+
+
+def _route_short(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
+                 lo_time, gage_rows, decay, res_da, da_states, step_inputs,
+                 collect, n_real) -> dict:
+    """The short-timestep steps of ``route_stepped``."""
+    real = _np_dtype(q.dtype)
+    fvds, nudges, courants = [], [], []
+    for t in range(1, cfg.nts + 1):
+        ql_t, obs_t, month_i = step_inputs(t)
+        # t and dt multiplied in the dtype, as the JAX short driver does
+        t_seconds = float(real(t) * real(cfg.dt))
         (q, v, depth, res_elev, lo_val, lo_time, nudge, da_states,
          courant) = _one_short_step(
             q, depth, res_elev, lo_val, lo_time, ql_t, obs_t, t_seconds,
@@ -367,15 +709,146 @@ def route_stepped(net: NetworkArrays, chan: ChannelParams,
             nudges.append(nudge)
             if cfg.return_courant:
                 courants.append(courant[:n_real])
+    return _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
+                   da_states, collect, fvds, nudges, courants)
 
-    hyb, rfc, gl = da_states if da_states is not None else (None,) * 3
-    state = RoutingState(q=q[:n_real], depth=depth[:n_real],
-                         res_elev=res_elev, lastobs_val=lo_val,
-                         lastobs_time=lo_time, hybrid=hyb, rfc=rfc, gl=gl)
-    out = {"state": state, "flowveldepth": None, "nudge": None}
-    if collect:
-        out["flowveldepth"] = torch.stack(fvds)
-        out["nudge"] = torch.stack(nudges)
-        if cfg.return_courant:
-            out["courant"] = torch.stack(courants)
+
+def _route_strict(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
+                  lo_time, gage_rows, decay, res_da, da_states, step_inputs,
+                  collect, n_real) -> dict:
+    """The strict fixed-point steps of ``route_stepped``
+    (``troute_tpu/routing/engine.py:1316-1507``).
+
+    Each timestep starts from a quadratic extrapolation of the last three
+    states, then runs sweeps in chunks; after each chunk the host reads
+    ``delta`` and ``qmax`` in one transfer and stops once delta <=
+    max(strict_tol, 4 eps qmax), or at ``strict_max_sweeps``.  Jacobi
+    chunks (``_strict_sweeps``) take the linear accelerator when it is on,
+    with an adaptive first-chunk size and tails of 3 sweeps, and the
+    block-skip kernel when ``strict_block_skip`` is on (never in the first
+    chunk of a run, which has no tolerance yet).  With ``strict_gs`` and a
+    banded plan of positive shifts, GS chunks (``_strict_gs_sweeps``)
+    iterate and one Jacobi sweep commits the state.  Any start converges
+    to the same fixed point; only the sweep count changes.
+    """
+    dtype = q.dtype
+    real = _np_dtype(dtype)
+    n_pad = q.shape[0]
+    eps4 = 4.0 * torch.finfo(dtype).eps
+    sweeps_cfg = max(int(cfg.strict_sweep_chunk), 1)
+    cap = int(cfg.strict_max_sweeps)
+    uplan = net.uplan
+    width = int(cfg.strict_gs_cols)
+    use_gs = (_resolve_flag(cfg.strict_gs, False) and uplan is not None
+              and len(uplan.shifts) > 0 and all(d > 0 for d in uplan.shifts)
+              and n_pad == uplan.n_pad and n_pad % width == 0)
+    use_accel = (_accel_enabled(cfg, stepped=True) and not use_gs
+                 and uplan is not None and n_pad == uplan.n_pad
+                 and cfg.strict_accel_lin > 0)
+    use_skip = _resolve_flag(cfg.strict_block_skip, False) and not use_gs
+    gs_chunk = max(1, sweeps_cfg // 8)
+    tol_latest = None
+    gain_carry = None
+    sw_adapt, sw_streak, sw_fail = max(2, int(cfg.strict_accel_chunk)), 0, None
+    sweep_counts = []
+    calls = {"mc_secant": 0, "mc_secant_skip": 0}
+    q_prev_step = q_prev2 = None
+    fvds, nudges, courants = [], [], []
+
+    def poll(delta, qmax):
+        """The one device-to-host transfer of a chunk."""
+        d_h, q_h = torch.stack([delta, qmax]).tolist()
+        return d_h, max(cfg.strict_tol, eps4 * q_h)
+
+    for t in range(1, cfg.nts + 1):
+        ql_t, obs_t, month_i = step_inputs(t)
+        # t * dt taken in Python and then cast, as the JAX strict driver
+        t_seconds = float(real(t * cfg.dt))
+        if q_prev_step is None:
+            q_est = q
+        elif q_prev2 is None:
+            q_est = torch.clamp_min(2.0 * q - q_prev_step, 0.0)
+        else:
+            q_est = torch.clamp_min(3.0 * (q - q_prev_step) + q_prev2, 0.0)
+        step = (q, depth, res_elev, lo_val, lo_time, ql_t, obs_t, t_seconds,
+                net.upstream, chan, res_params, net.is_reservoir,
+                net.res_rows, gage_rows, decay, cfg.dt)
+        kw = dict(res_da=res_da, da_states=da_states, month_i=month_i)
+        total = 0
+        if use_gs:
+            g = _gs_step_inputs(q, depth, ql_t, obs_t, lo_val, lo_time,
+                                net.upstream, chan, net.is_reservoir,
+                                net.res_rows, gage_rows, uplan, width)
+            # reserve one sweep of the cap for the commit sweep
+            while total < cap - 1:
+                chunk = min(gs_chunk, cap - 1 - total)
+                q_est, delta, qmax = _strict_gs_sweeps(
+                    q_est, g, res_elev, t_seconds, res_params, net.res_rows,
+                    decay, cfg.dt, chunk, uplan, **kw)
+                total += chunk
+                calls["mc_secant"] += chunk * width
+                delta_h, tol_eff = poll(delta, qmax)
+                if delta_h <= tol_eff:
+                    break
+            (q_est, v, d, res_elev_c, lo_val_c, lo_time_c, nudge_t,
+             da_states_c, cour_t, delta, qmax) = _strict_sweeps(
+                q_est, *step, 1, return_courant=cfg.return_courant,
+                uplan=uplan, **kw)
+            total += 1
+            calls["mc_secant"] += 1
+        else:
+            sw = sw_adapt if use_accel else sweeps_cfg
+            lin = int(cfg.strict_accel_lin) if use_accel else 0
+            first_chunk = min(sw, cap)
+            while True:
+                # after a first-chunk miss the iterate is near converged,
+                # so accelerated tails poll every 3 sweeps
+                chunk = min(sw if (not use_accel or total == 0) else 3,
+                            cap - total)
+                accel_k = lin if chunk >= 3 else 0
+                skip_t = (float(real(0.25 * tol_latest))
+                          if use_skip and tol_latest is not None else None)
+                res_k = _strict_sweeps(
+                    q_est, *step, chunk, return_courant=cfg.return_courant,
+                    uplan=uplan, accel_lin=accel_k,
+                    gain0=gain_carry if accel_k else None, skip_tol=skip_t,
+                    **kw)
+                (q_est, v, d, res_elev_c, lo_val_c, lo_time_c, nudge_t,
+                 da_states_c, cour_t, delta, qmax) = res_k[:11]
+                if accel_k:
+                    gain_carry = res_k[11]
+                n_skip = max(chunk - 2, 0) if skip_t is not None else 0
+                calls["mc_secant_skip"] += n_skip
+                calls["mc_secant"] += chunk - n_skip
+                total += chunk
+                delta_h, tol_latest = poll(delta, qmax)
+                if delta_h <= tol_latest or total >= cap:
+                    break
+            if use_accel:
+                # after 3 one-chunk steps in a row try one sweep fewer; a
+                # size that ever missed is not tried again
+                if total <= first_chunk:
+                    sw_streak += 1
+                    if sw_streak >= 3 and sw_adapt > 3 \
+                            and (sw_fail is None or sw_adapt - 1 > sw_fail):
+                        sw_adapt -= 1
+                        sw_streak = 0
+                else:
+                    sw_fail = first_chunk
+                    sw_adapt = min(first_chunk + 1, cap)
+                    sw_streak = 0
+        sweep_counts.append(total)
+        q_prev2, q_prev_step = q_prev_step, q
+        q, depth, res_elev = q_est, d, res_elev_c
+        lo_val, lo_time, da_states = lo_val_c, lo_time_c, da_states_c
+        if collect:
+            fvds.append(torch.stack([q, v, d], dim=-1)[:n_real])
+            nudges.append(nudge_t)
+            if cfg.return_courant:
+                courants.append(cour_t[:n_real])
+
+    out = _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
+                  da_states, collect, fvds, nudges, courants)
+    out["strict_sweeps"] = sweep_counts
+    out["strict_mc_calls"] = calls
     return out
