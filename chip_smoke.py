@@ -3,24 +3,34 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 1. Device: the card's name and power limit, the torch/CUDA/nvcc versions,
-   and the build of the MC kernel (``troute_torch/csrc/mc_secant.cu``) from
-   this checkout.
-2. Kernel against plain: the kernel and the plain ``solve_block`` on the
-   same card, on the CONUS parameter ranges of ``tests/test_muskingum.py``
-   (2,729,077 lanes f32, 1,000,000 f64), the golden values and zero
-   forcing, at the tests' tolerances; kernel and plain times in ms.
+   and the builds from this checkout, started together: the MC kernels
+   (``troute_torch/csrc/mc_secant.cu``), the same source with its probe
+   kernels and ``-Xptxas -v`` (registers and spills of B1 and B2 in f32
+   and f64; no spills allowed), and the host topology library.  From the
+   probes' SASS (``cuobjdump``): the instructions and MUFU ops on the
+   straight path of one in-bank residual evaluation, for the operation
+   bound.
+2. Kernel B1 against plain: the kernel and the plain ``solve_block`` on
+   the same card, on the CONUS parameter ranges of ``tests/test_muskingum.py``
+   (2,729,077 lanes f32 bit for bit, 1,000,000 f64 at rtol 1e-9), per-lane
+   trip counts equal, two calls bit-identical, lane counts 0, 1, 31, 33,
+   257 and 100,003, retry-heavy lanes interleaved with no-flow lanes, the
+   golden values and zero forcing; kernel and plain times in ms, trips
+   mean and max, residual evaluations, the SIMT efficiency of one thread
+   per lane in 32-lane warps, the bound and the slowest lane alone (the
+   floor no scheduling removes).
 3. Engine, card against CPU: ``route_stepped`` on a 200,000-segment
    synthetic network with level-pool reservoirs and gages, 24 steps, on
    the card (kernel) and on the CPU (plain), in f64 (``check_f64_network``)
    and f32 (the f32 bar).
-4. Main path at CONUS scale: ``bench.py``'s headline setup (2,729,077
-   segments, dt 300 s, 24 steps per window, qts 12, f32) through the
-   port's ``route_stepped`` on the card, cold and warm windows, with the
-   kernel's launches counted; then the kernel and the plain version on
-   one warm step's inputs.
+4. Main path at CONUS scale: the port's synthetic CONUS network
+   (``troute_torch/synthetic.py``: 2,729,077 segments, dt 300 s, 24 steps
+   per window, qts 12, f32) through ``route_stepped`` on the card, cold and
+   warm windows, with the kernel's launches counted; then B1 and the plain
+   version on one warm step's inputs, with phase 2's checks and numbers.
 5. Kernel B2 against plain: the block-skip kernel and the plain
    ``solve_block_skip`` on the card, on the CONUS ranges (2,729,077 f32
    lanes bit for bit, 1,000,000 f64 lanes at rtol 1e-9), for four
@@ -33,27 +43,42 @@ Run from the root of a checkout, with no arguments:
    rtol/atol 1e-4); the card's B1/B2 launches equal the driver's own MC
    call counts.
 7. Strict path at CONUS scale: ``bench.py:482-515`` and
-   ``benchmarks/bench_strict_skip.py`` on the port, from phase 4's warm
-   state: 12-step strict windows (qts 2, f32) with ``strict_block_skip``
-   off and on (accelerator "auto"), and with the accelerator off, one
-   warm-up window each, then 4 interleaved timed turns, with launches
-   counted; one profiled window of each for the device's idle share; then
-   B2 and the plain version on one real skip sweep's inputs, captured from
-   a further window.
+   ``benchmarks/bench_strict_skip.py`` of the JAX package, on the port,
+   from phase 4's warm state: 12-step strict windows (qts 2, f32) with
+   ``strict_block_skip`` off and on (accelerator "auto"), and with the
+   accelerator off, one warm-up window each, then 4 interleaved timed
+   turns, with launches counted; one profiled window of each for the
+   device's idle share; then B2 and the plain version on one real skip
+   sweep's inputs, captured from a further window.
 
-Every check raises on failure, so the script exits non-zero.  It exits 1,
-printing no result, when no CUDA device is visible or it is not run from a
-checkout.  The line before last is a JSON object with the kernels'
-measurements; the last line is ``{"ok": true, "device": {...}}``.
+``--baseline DIR`` (a checkout of an earlier commit with the
+one-thread-per-lane B1, e.g. the parent commit unpacked with ``git
+archive``) also builds ``DIR/troute_torch/csrc/mc_secant.cu`` and times it
+in turns with this B1 on the inputs of phases 2 and 4 and on each step
+of one cold and one warm phase-4 window (baseline, kernel, kernel,
+baseline), and at the end runs phase 4's windows of ``DIR``'s
+``chip_smoke.py`` and of this one, each in a process of its own, in the
+same turns, for the cold and warm seg-ts/s of both.
+
+Every check raises on failure, so the script exits non-zero; so does a
+run that imported any module of JAX, of the JAX package or its
+``bench.py``.  It exits 1, printing no result, when no CUDA device is
+visible or it is not run from a checkout.  The line before last is a JSON
+object with the kernels' measurements; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -75,6 +100,11 @@ GOLDEN64_IN = dict(GOLDEN, qup=0.04598825885217007, quc=0.04598825885217007,
                    qdp=0.21487345087737053, depthp=0.010033471026476835)
 GOLDEN_F64 = (0.7570107902354513, 0.12373606306742324, 0.02334451646521419)
 GOLDEN_DT = 60.0
+
+# NVIDIA H100 SXM: SMs, FP32 lanes and MUFU ops per clock per SM, HBM3
+# bytes per second (NVIDIA's H100 SXM datasheet); the SM clock is read
+# from nvidia-smi
+SMS, FP32_PER_CLK, MUFU_PER_CLK, HBM_BYTES_PER_S = 132, 128, 16, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -117,10 +147,11 @@ def check_f32_bar(got, want, what: str, max_share=None) -> dict:
     return st
 
 
-def check_f64(got_list, want_list, what: str, inputs=None) -> int:
+def check_f64(got_list, want_list, what: str, inputs=None) -> np.ndarray:
     """rtol 1e-9, atol 1e-12 per lane.  With ``inputs`` (MC lanes), a lane
     off that bar is settled by the scalar oracle: the kernel must be at
-    least as close to it as the plain version (at most 0.5% of lanes)."""
+    least as close to it as the plain version (at most 0.5% of lanes).
+    Returns the lanes so settled."""
     off = np.zeros(got_list[0].shape, bool)
     for g, w in zip(got_list, want_list):
         off |= ~np.isclose(g, w, rtol=1e-9, atol=1e-12)
@@ -139,7 +170,7 @@ def check_f64(got_list, want_list, what: str, inputs=None) -> int:
                 if abs(g[i] - ref[k]) > max(abs(w[i] - ref[k]),
                                             1e-9 * abs(ref[k]) + 1e-12):
                     raise AssertionError(f"{what}: lane {i} output {k}")
-    return int(lanes.size)
+    return lanes
 
 
 def cuda_ms(fn, reps: int = 5, warm_up: bool = True) -> float:
@@ -162,32 +193,334 @@ def cuda_ms(fn, reps: int = 5, warm_up: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_device(device) -> str:
-    import torch
+def smi_query(fields: str) -> str:
+    """``nvidia-smi --query-gpu=<fields> --format=csv,noheader`` of the
+    first card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_functions(lib: Path) -> dict:
+    """{mangled function: [(address, predicate, opcode, operands)]} from
+    the SASS of ``lib`` (``cuobjdump -sass``)."""
     from troute_torch import _build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = _SASS_LINE.search(line)
+        if m and name:
+            out[name].append((int(m.group(1), 16), (m.group(2) or "").strip(),
+                              m.group(3), m.group(4).strip()))
+    return out
+
+
+def straight_path(code: list) -> tuple[int, int]:
+    """(instructions, MUFU ops) that one thread issues from the entry of
+    ``code`` (``sass_functions``) to its EXIT on the straight path, NOPs
+    left out: a conditional branch falls through, unless the code it
+    would fall into calls a subroutine (the slow paths of IEEE divide and
+    sqrt) before its next branch or join; an unconditional branch or a
+    call is followed."""
+    at = {a: k for k, (a, *_) in enumerate(code)}
+
+    def walk(k: int) -> tuple[int, int]:
+        n = mufu = 0
+        seen = set()
+        while True:
+            a, pred, op, args = code[k]
+            if a in seen:
+                raise AssertionError(f"SASS path loops at {a:#x}")
+            seen.add(a)
+            if not op.startswith("NOP"):
+                n, mufu = n + 1, mufu + op.startswith("MUFU")
+            if (op == "EXIT" and not pred) or op.startswith("RET"):
+                return n, mufu
+            if op in ("BRX", "JMX", "JMP"):
+                raise AssertionError(f"SASS {op} at {a:#x}")
+            if op.startswith("CALL"):
+                cn, cm = walk(at[int(args.split()[0], 16)])
+                n, mufu = n + cn, mufu + cm
+            elif op == "BRA":
+                target = at[int(args.split()[-1], 16)]
+                j = k + 1
+                while not code[j][2].startswith(("BRA", "EXIT", "BSYNC",
+                                                 "CALL", "RET")):
+                    j += 1
+                if pred in ("", "@PT") or code[j][2].startswith("CALL"):
+                    k = target
+                    continue
+            k += 1
+
+    return walk(0)
+
+
+def _kernel_of(report: dict, pattern: str):
+    hits = [v for k, v in report.items() if re.search(pattern, k)]
+    if len(hits) != 1:
+        raise AssertionError(f"{pattern}: {len(hits)} matches in "
+                             f"{sorted(report)}")
+    return hits[0]
+
+
+def phase_device(device) -> dict:
+    """Versions, the builds (started together) and what the compiler says
+    about B1 and B2: registers, spills, SASS of one residual evaluation."""
+    import torch
+    from troute_torch import _build, native
+    smi = smi_query("name,power.limit")
     log(smi)
+    clock_mhz = float(smi_query("clocks.max.sm").split()[0])
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[-1]
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"cuda {torch.version.cuda}  nvcc: {nvcc}")
+        f"cuda {torch.version.cuda}  nvcc: {nvcc}; max SM clock "
+        f"{clock_mhz:.0f} MHz")
     log(f"device {device}: {torch.cuda.get_device_name(device)}")
     t0 = time.perf_counter()
-    lib, _ = _build.build("mc_secant")
+    with ThreadPoolExecutor(3) as pool:
+        kernels = pool.submit(_build.build, "mc_secant")
+        probes = pool.submit(_build.build, "mc_secant",
+                             ("-Xptxas", "-v", "-DMC_SECANT_PROBES"))
+        host = pool.submit(native.available)
+        (lib, _), (probe_lib, ptxas), host_ok = (
+            kernels.result(), probes.result(), host.result())
     _build.load("mc_secant")
-    log(f"phase 1: built {lib.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    return smi
+    log(f"phase 1: built {lib.relative_to(ROOT)}, "
+        f"{probe_lib.relative_to(ROOT)} (probes, -Xptxas -v) and the host "
+        f"topology library ({'native' if host_ok else 'NumPy fallbacks'}) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    regs = ptxas_report(ptxas)
+    usage = {}
+    for name, pat in (("B1 f32", r"mc_secant_kernelIf"),
+                      ("B1 f64", r"mc_secant_kernelId"),
+                      ("B2 f32", r"mc_secant_skip_kernelIf"),
+                      ("B2 f64", r"mc_secant_skip_kernelId")):
+        r, st, ld = _kernel_of(regs, pat)
+        if st or ld:
+            raise AssertionError(f"{name} spills: {st} B stored, {ld} B "
+                                 "loaded")
+        usage[name] = r
+    sass = sass_functions(probe_lib)
+    i0, m0 = straight_path(_kernel_of(sass, r"probe_eval0IfE"))
+    i1, m1 = straight_path(_kernel_of(sass, r"probe_eval1IfE"))
+    per_eval = dict(instr=i1 - i0, mufu=m1 - m0)
+    log(f"phase 1: registers (-Xptxas -v), no spills: {usage}; SASS of one "
+        f"f32 residual evaluation (probe kernels' difference, straight "
+        f"in-bank path, no divide or sqrt slow path): {per_eval['instr']} "
+        f"instructions, {per_eval['mufu']} MUFU")
+    return dict(smi=smi, clock_hz=clock_mhz * 1e6, per_eval=per_eval,
+                registers=usage)
 
 
-def phase_kernel_vs_plain(device, n32: int, n64: int) -> None:
+def kernel_bound(dev: dict, n_bytes: float, lane_evals: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the residual evaluations' SASS (each the straight
+    in-bank path, ``phase_device``) over the issue rate (128 lanes per SM
+    per clock) or their MUFU ops over the MUFU rate (16 per SM per clock),
+    at the card's max SM clock.  Passes that evaluate nothing, refills and
+    overbank code are left out, so the operations are counted low."""
+    clk = dev["clock_hz"]
+    b_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    issue_ms = 1e3 * lane_evals * dev["per_eval"]["instr"] / (
+        SMS * FP32_PER_CLK * clk)
+    mufu_ms = 1e3 * lane_evals * dev["per_eval"]["mufu"] / (
+        SMS * MUFU_PER_CLK * clk)
+    ops_ms = max(issue_ms, mufu_ms)
+    return dict(bound_ms=max(b_ms, ops_ms),
+                bound_by="bytes" if b_ms >= ops_ms else "operations",
+                bytes_ms=b_ms, issue_ms=issue_ms, mufu_ms=mufu_ms)
+
+
+def trip_stats(trips, evals) -> dict:
+    """Mean and max trips, the lane-trips, the residual evaluations, and
+    the SIMT efficiency that one thread per lane in 32-lane warps had:
+    lane-trips / (32 x the sum over warps of the warp's slowest lane);
+    ``block`` the same over 256-lane blocks, since a block held its SM
+    slot until its slowest warp ended."""
+    t = trips.cpu().numpy().astype(np.int64)
+    e = evals.cpu().numpy().astype(np.int64)
+
+    def eff(width):
+        w = np.zeros(-(-t.size // width) * width, np.int64)
+        w[:t.size] = t
+        return float(t.sum()) / max(
+            width * int(w.reshape(-1, width).max(axis=1).sum()), 1)
+
+    return dict(mean=float(t.mean()) if t.size else 0.0,
+                max=int(t.max()) if t.size else 0, lane_trips=int(t.sum()),
+                evals_mean=float(e.mean()) if e.size else 0.0,
+                lane_evals=int(e.sum()), simt=eff(32), block=eff(256))
+
+
+class BaselineB1:
+    """An earlier B1 (``src``, one thread per lane), built from its source
+    and called through its C interface: 13 inputs, dt, 6 outputs, nseg,
+    stream."""
+
+    def __init__(self, src: Path):
+        from troute_torch import _build
+        path, _ = _build.compile_cached(_build.find_nvcc(),
+                                        _build.NVCC_FLAGS, src)
+        self.lib, self.fn = ctypes.CDLL(str(path)), {}
+        for dt, name, c_real in (("float32", "mc_secant_f32", ctypes.c_float),
+                                 ("float64", "mc_secant_f64",
+                                  ctypes.c_double)):
+            fn = getattr(self.lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 13 + [c_real]
+                           + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int64, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self.fn[dt] = fn
+        log(f"built {path.name} from {src}")
+
+    def __call__(self, args, diag: bool):
+        import torch
+        out = [torch.empty_like(args[0]) for _ in range(6 if diag else 3)]
+        ptrs = [o.data_ptr() for o in out] + [None] * (6 - len(out))
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = self.fn[str(args[0].dtype).split(".")[-1]](
+            *[a.data_ptr() for a in args], DT, *ptrs, args[0].shape[0],
+            stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline B1 launch failed: CUDA error {rc}")
+        return out
+
+
+def b1_gate(args, what: str, diag: bool = True, inputs=None):
+    """B1 against the plain ``solve_block`` on the same card: f32 bit for
+    bit, f64 at rtol 1e-9 (``check_f64``), per-lane trips and evaluations
+    equal (in f64, a lane that ``check_f64`` settled by the scalar oracle
+    may differ), and a second call bit-identical.  Returns the kernel's
+    outputs as NumPy, its trips and evaluations, and the max abs
+    difference."""
     import torch
     from troute_torch.ops import muskingum_cuda as mcc
     from troute_torch.ops.muskingum import solve_block
+    n_out = 6 if diag else 3
+    k_out, k_trips, k_evals = mcc.muskingum_cunge_cuda(
+        *args, DT, with_diagnostics=diag, return_trips=True)
+    again, again_trips, again_evals = mcc.muskingum_cunge_cuda(
+        *args, DT, with_diagnostics=diag, return_trips=True)
+    p_out = solve_block(*args, dt=DT, return_trips=True)
+    torch.cuda.synchronize()
+    got = [o.cpu().numpy() for o in k_out[:n_out]]
+    want = [o.cpu().numpy() for o in p_out[:n_out]]
+    if not (torch.equal(k_trips, again_trips)
+            and torch.equal(k_evals, again_evals)) or not all(
+            np.array_equal(g, a.cpu().numpy(), equal_nan=True)
+            for g, a in zip(got, again)):
+        raise AssertionError(f"{what}: two kernel calls differ")
+    settled = np.zeros(0, np.int64)
+    if args[0].dtype == torch.float32:
+        for k, (g, w) in enumerate(zip(got, want)):
+            if not np.array_equal(g, w, equal_nan=True):
+                raise AssertionError(f"{what}: output {k} not bit for bit")
+    else:
+        settled = check_f64(got, want, what, inputs=inputs)
+    counts_off = np.flatnonzero(((k_trips != p_out[6])
+                                 | (k_evals != p_out[7])).cpu().numpy())
+    if not np.isin(counts_off, settled).all():
+        raise AssertionError(f"{what}: kernel trips or evaluations differ "
+                             f"from plain on {counts_off.size} lanes")
+    max_abs = max((float(np.abs(g - w).max()) for g, w in zip(got, want)
+                   if g.size), default=0.0)
+    if counts_off.size:
+        log(f"{what}: trips differ from plain on {counts_off.size} lanes, "
+            "each settled by the scalar oracle")
+    return got, k_trips, k_evals, max_abs
+
+
+def b1_numbers(dev: dict, args, trips, evals, diag: bool, what: str,
+               smi: str, baseline=None) -> dict:
+    """Times of B1 and the plain version on ``args`` (and of the baseline,
+    in turns), the bound from these inputs' trips, and the slowest lane
+    alone."""
+    from troute_torch.ops import muskingum_cuda as mcc
+    from troute_torch.ops.muskingum import solve_block
+    n, st = int(args[0].shape[0]), trip_stats(trips, evals)
+    item = args[0].element_size()
+    bound = kernel_bound(dev, n * (13 + (6 if diag else 3)) * item,
+                         st["lane_evals"])
+
+    def b1():
+        return mcc.muskingum_cunge_cuda(*args, DT, with_diagnostics=diag)
+
+    if baseline is not None:
+        got, want = baseline(args, diag), b1()
+        if not all(np.array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                  equal_nan=True)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"{what}: baseline and kernel differ")
+        base = [cuda_ms(lambda: baseline(args, diag), reps=10)]
+        ms = [cuda_ms(b1, reps=10), cuda_ms(b1, reps=10)]
+        base.append(cuda_ms(lambda: baseline(args, diag), reps=10))
+    else:
+        ms, base = [cuda_ms(b1, reps=10)], []
+    # the plain version's gate call was its warm-up
+    p_ms = cuda_ms(lambda: solve_block(*args, dt=DT), reps=1, warm_up=False)
+    i = int(trips.argmax())
+    one = [a[i:i + 1].contiguous() for a in args]
+    floor_ms = cuda_ms(lambda: mcc.muskingum_cunge_cuda(
+        *one, DT, with_diagnostics=diag), reps=20)
+    cyc = floor_ms * 1e-3 * dev["clock_hz"] / max(st["max"], 1)
+    log(f"{what}: {n} lanes: B1 {' / '.join(f'{t:.4f}' for t in ms)} ms"
+        + (f", baseline {' / '.join(f'{t:.4f}' for t in base)}"
+           f" ms (in turns: baseline, B1, B1, baseline)" if base else "")
+        + f", plain {p_ms:.3f} ms; trips mean {st['mean']:.4f} max "
+        f"{st['max']}, lane-trips {st['lane_trips']}, residual evaluations "
+        f"{st['lane_evals']} (mean {st['evals_mean']:.4f}), SIMT efficiency "
+        f"of one "
+        f"thread per lane {st['simt']:.4f} (per 256-lane block "
+        f"{st['block']:.4f}); bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}: bytes {bound['bytes_ms']:.4f}, issue "
+        f"{bound['issue_ms']:.4f}, MUFU {bound['mufu_ms']:.4f} ms); slowest "
+        f"lane alone {floor_ms:.4f} ms ({st['max']} trips, ~{cyc:.0f} cycles "
+        f"per trip at the max clock)  [{smi}]")
+    return dict(ms=min(ms), ms_all=ms, baseline_ms=base, plain_ms=p_ms,
+                trips_mean=st["mean"], trips_max=st["max"],
+                evals_mean=st["evals_mean"], lane_trips=st["lane_trips"],
+                lane_evals=st["lane_evals"], simt_one_per_lane=st["simt"],
+                block_one_per_lane=st["block"],
+                floor_ms=floor_ms, **bound)
+
+
+def phase_kernel_vs_plain(device, dev: dict, n32: int, n64: int,
+                          baseline=None) -> dict:
+    import torch
+    from troute_torch.ops import muskingum_cuda as mcc
 
     def on_card(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -205,60 +538,63 @@ def phase_kernel_vs_plain(device, n32: int, n64: int) -> None:
                                      f"{want[k]}")
         z = torch.zeros(4, dtype=dtype, device=device)
         one = torch.ones(4, dtype=dtype, device=device)
-        out = mcc.muskingum_cunge_cuda(
+        out, trips, evals = mcc.muskingum_cunge_cuda(
             z, z, z, z, 1800.0 * one, 112.0 * one, 448.0 * one, 623.6 * one,
-            0.028 * one, 0.031 * one, 1.4 * one, 0.0018 * one, z, DT)
+            0.028 * one, 0.031 * one, 1.4 * one, 0.0018 * one, z, DT,
+            return_trips=True)
         torch.cuda.synchronize()
-        for o in (out.qdc, out.velc, out.depthc, out.X):
+        for o in (out.qdc, out.velc, out.depthc, out.X, trips, evals):
             if bool((o != 0).any()):
                 raise AssertionError("zero forcing gave a nonzero output")
-    log("phase 2: golden values and zero forcing pass (f32, f64)")
+    log("phase 2: golden values and zero forcing (0 trips) pass (f32, f64)")
 
+    res = {}
     for dtype, n in ((torch.float32, n32), (torch.float64, n64)):
         inputs = conus_range_inputs(n, seed=0)
         args = [on_card(a, dtype) for a in inputs]
-        k_out = mcc.muskingum_cunge_cuda(*args, DT)
-        torch.cuda.synchronize()
-        p_out = solve_block(*args, dt=DT)
-        torch.cuda.synchronize()
-        got = [o.cpu().numpy() for o in k_out]
-        want = [o.cpu().numpy() for o in p_out]
-        max_abs = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        _, trips, evals, max_abs = b1_gate(args, f"conus-range {dtype}",
+                                           inputs=inputs)
+        want_bar = "bit for bit" if dtype == torch.float32 else "rtol 1e-9"
+        for m in (0, 1, 31, 33, 257, 100_003):
+            b1_gate([a[:m] for a in args], f"{dtype} first {m} lanes",
+                    inputs=[a[:m] for a in inputs])
+        # retry-heavy lanes (over 100 trips) interleaved with no-flow lanes
+        heavy = torch.nonzero(trips > 100).flatten()[:4096]
+        mix = []
+        for k, a in enumerate(args):
+            h = a[heavy]
+            z = torch.zeros_like(h) if NAMES[k] in ("qup", "quc", "qdp", "ql") \
+                else h
+            mix.append(torch.stack([h, z], dim=1).reshape(-1).contiguous())
+        _, mix_trips, _, _ = b1_gate(mix, f"{dtype} retry-heavy mix",
+                                     inputs=[a.cpu().numpy() for a in mix])
+        log(f"phase 2: B1 vs plain {dtype}, {n} lanes, 6 outputs: {want_bar}, "
+            f"trips and evaluations equal, two calls identical, max abs "
+            f"{max_abs:.3g}; also "
+            f"at 0, 1, 31, 33, 257, 100003 lanes and on {heavy.numel()} "
+            f"retry-heavy lanes (trips {int(mix_trips.min())}-"
+            f"{int(mix_trips.max())}) interleaved with no-flow lanes")
         if dtype == torch.float32:
-            stats = [check_f32_bar(g, w, f"conus-range f32 output {k}",
-                                   max_share=0.005)
-                     for k, (g, w) in enumerate(zip(got, want))]
-            worst = max(s["max"] for s in stats)
-            log(f"phase 2: kernel vs plain f32, {n} lanes, 6 outputs: "
-                f"median/p95/max rel {max(s['median'] for s in stats):.3g}/"
-                f"{max(s['p95'] for s in stats):.3g}/{worst:.3g}, lanes "
-                f"past 5e-2: {max(s['over_5e_2'] for s in stats)}, max abs "
-                f"{max_abs:.3g}")
-            k_ms = cuda_ms(lambda: mcc.muskingum_cunge_cuda(*args, DT))
-            p_ms = cuda_ms(lambda: solve_block(*args, dt=DT))
-            log(f"phase 2: conus-range f32 {n} lanes: kernel {k_ms:.3f} ms, "
-                f"plain {p_ms:.3f} ms")
-        else:
-            n_off = check_f64(got, want, "conus-range f64", inputs=inputs)
-            log(f"phase 2: kernel vs plain f64, {n} lanes, 6 outputs: rtol "
-                f"1e-9 holds on all but {n_off} lanes (settled by the "
-                f"scalar oracle), max abs {max_abs:.3g}")
-        del args, k_out, p_out
+            res = b1_numbers(dev, args, trips, evals, True,
+                             "phase 2: conus-range f32", dev["smi"], baseline)
+            res["max_abs"] = max_abs
+        del args
+    return res
 
 
 def _network(n: int, n_res: int, n_gage: int, seed: int):
     """Post-order synthetic CONUS-statistics network with level-pool
     reservoirs and gages, as NumPy inputs for ``route_stepped``."""
-    import bench
+    from troute_torch import synthetic
     from troute_torch.network.topology import build_topology_postorder
-    ids, down = bench.synthetic_conus(n=n)
+    ids, down = synthetic.synthetic_conus(n=n)
     rng = np.random.default_rng(seed)
     has_up = np.zeros(n, bool)
     has_up[np.searchsorted(ids, down[down > 0])] = True
     nt = np.zeros(n, np.int8)
     nt[rng.choice(np.flatnonzero(has_up), n_res, replace=False)] = 1
     topo = build_topology_postorder(ids, down, node_type=nt)
-    chan = bench.channel_params(n, rng)
+    chan = synthetic.channel_params(n, rng)
     lp = [rng.uniform(1.0, 3.0, n_res)] + [np.full(n_res, v) for v in (
         12.0, 1.2, 0.1, 8.0, 0.4, 11.0, 12.0, 10.0)]
     q0 = rng.uniform(0.5, 5.0, n)
@@ -393,24 +729,24 @@ def phase_engine_card_vs_cpu(device, n: int, nts: int) -> None:
             f"{t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
-def phase_main_path(device, n: int, nts: int, smi: str) -> dict:
-    """bench.py:410-480 on the port: cold windows re-route the initial
-    state, warm windows hand the state forward with fresh forcing."""
+def main_path_windows(device, n: int, nts: int, smi: str) -> dict:
+    """bench.py:410-480 of the JAX package, on the port: cold windows
+    re-route the initial state, warm windows hand the state forward with
+    fresh forcing; B1's launches counted."""
     import torch
-    import bench
+    from troute_torch import synthetic
     from troute_torch.network.topology import build_topology
     from troute_torch.ops import muskingum_cuda as mcc
     from troute_torch.ops.levelpool import LevelpoolParams
-    from troute_torch.ops.muskingum import solve_block
     from troute_torch.routing import engine
 
     f32 = torch.float32
     rng = np.random.default_rng(1)
     t0 = time.perf_counter()
-    ids, down = bench.synthetic_conus(n)
+    ids, down = synthetic.synthetic_conus(n)
     topo = build_topology(ids, down)
     net = engine.network_arrays_from_topology(topo, device=device)
-    chan = bench.channel_params(n, rng)
+    chan = synthetic.channel_params(n, rng)
     cp = engine.ChannelParams.from_arrays(device=device, dtype=f32, **chan)
     lp = LevelpoolParams(*[torch.ones(1, dtype=f32, device=device)] * 9)
 
@@ -462,34 +798,141 @@ def phase_main_path(device, n: int, nts: int, smi: str) -> dict:
         f"{seg / min(cold):.4e} seg-ts/s; warm best {min(warm):.4f} s "
         f"median {statistics.median(warm):.4f} s -> "
         f"{seg / min(warm):.4e} seg-ts/s  [{smi}]")
+    return dict(launches=launches, cold=cold, warm=warm,
+                setup=dict(net=net, cp=cp, lp=lp, cfg=cfg, qlats=qlats, q=q_w,
+                           d=d_w, q0=q0, d0=d0))
 
-    # one warm step's kernel inputs, as _one_short_step builds them
-    pad = net.uplan.n_pad - n
-    padz = torch.zeros(pad, dtype=f32, device=device)
-    q = torch.cat([q_w, padz])
-    args = [engine._upstream_sum_stepped(q, net.upstream, net.uplan)] * 2 \
-        + [q, torch.cat([qlats[0][0], padz])] \
-        + [torch.cat([c, padz + 1.0]) for c in cp] \
-        + [torch.cat([d_w, padz])]
-    args = [a.contiguous() for a in args]
-    k_out = mcc.muskingum_cunge_cuda(*args, DT, with_diagnostics=False)
-    torch.cuda.synchronize()
-    p_out = solve_block(*args, dt=DT)
-    torch.cuda.synchronize()
-    max_abs = 0.0
-    for k in range(3):
-        got, want = k_out[k].cpu().numpy(), p_out[k].cpu().numpy()
-        check_f32_bar(got, want, f"warm-step output {k}")
-        max_abs = max(max_abs, float(np.abs(got - want).max()))
-    k_ms = cuda_ms(lambda: mcc.muskingum_cunge_cuda(
-        *args, DT, with_diagnostics=False))
-    p_ms = cuda_ms(lambda: solve_block(*args, dt=DT))
+
+def phase_main_path(device, dev: dict, n: int, nts: int,
+                    baseline=None) -> dict:
+    """The main path's windows (``main_path_windows``), then B1 on one warm
+    step's inputs."""
+    from troute_torch.ops import muskingum_cuda as mcc
+    smi = dev["smi"]
+    res = main_path_windows(device, n, nts, smi)
+    ctx = res["setup"]
+    net, cp = ctx["net"], ctx["cp"]
+    args = warm_step_args(net, cp, ctx["q"], ctx["d"], ctx["qlats"][0][0])
+    _, trips, evals, max_abs = b1_gate(args, "warm step", diag=False)
+    q = args[2]
     up_ms = cuda_ms(lambda: net.uplan(q))
-    log(f"phase 4: warm step, {net.uplan.n_pad} lanes f32: kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, max abs diff {max_abs:.3g}; "
-        f"banded upstream sum {up_ms:.3f} ms  [{smi}]")
-    return dict(launches=launches, max_abs=max_abs, ms=k_ms, plain_ms=p_ms,
-                setup=dict(net=net, cp=cp, lp=lp, qlats=qlats, q=q_w, d=d_w))
+    log(f"phase 4: warm step, {net.uplan.n_pad} lanes f32: B1 vs plain bit "
+        f"for bit, trips and evaluations equal, two calls identical; banded "
+        f"upstream sum {up_ms:.3f} ms  [{smi}]")
+    res.update(b1_numbers(dev, args, trips, evals, False,
+                          "phase 4: warm step f32", smi, baseline),
+               max_abs=max_abs)
+    if baseline is not None:
+        b1_window_turns(ctx, baseline, smi)
+    return res
+
+
+def b1_window_turns(ctx: dict, baseline, smi: str) -> None:
+    """B1 and the baseline B1 on each step's inputs of one cold and one
+    warm main-path window (captured from ``route_stepped``), in turns per
+    step (baseline, B1, B1, baseline), outputs bit for bit; logs the sums
+    over the window and the steps where B1 loses most."""
+    import torch
+    from troute_torch.ops import muskingum_cuda as mcc
+    from troute_torch.routing import engine
+    real = engine.muskingum_cunge_cuda
+    zeros1 = torch.zeros(1, dtype=torch.float32, device=ctx["q"].device)
+    for name, start in (("cold", (ctx["q0"], ctx["d0"], ctx["qlats"][0])),
+                        ("warm", (ctx["q"], ctx["d"], ctx["qlats"][1]))):
+        steps = []
+
+        def capture(*args, **kw):
+            steps.append(([a.clone() for a in args[:13]],
+                          kw.get("with_diagnostics", True)))
+            return real(*args, **kw)
+
+        engine.muskingum_cunge_cuda = capture
+        try:
+            engine.route_stepped(ctx["net"], ctx["cp"], ctx["lp"], ctx["cfg"],
+                                 *start[:2], zeros1, start[2])
+        finally:
+            engine.muskingum_cunge_cuda = real
+        rows = []
+        for k, (a, diag) in enumerate(steps):
+            if not all(torch.equal(g, w) for g, w in zip(
+                    baseline(a, diag), mcc.muskingum_cunge_cuda(
+                        *a, DT, with_diagnostics=diag))):
+                raise AssertionError(f"{name} step {k}: baseline and B1 "
+                                     "differ")
+            def ours():
+                return mcc.muskingum_cunge_cuda(*a, DT, with_diagnostics=diag)
+
+            def base():
+                return baseline(a, diag)
+
+            t = [cuda_ms(f) for f in (base, ours, ours, base)]
+            _, trips, evals = mcc.muskingum_cunge_cuda(*a, DT,
+                                                       with_diagnostics=diag,
+                                                       return_trips=True)
+            st = trip_stats(trips, evals)
+            rows.append((k, (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, st))
+        base_ms = sum(r[1] for r in rows)
+        b1_ms = sum(r[2] for r in rows)
+        worst = sorted(rows, key=lambda r: r[1] - r[2])[:3]
+        lane_evals = sum(r[3]["lane_evals"] for r in rows)
+        log(f"phase 4: {name} window, {len(rows)} steps: B1 {b1_ms:.4f} ms, "
+            f"baseline {base_ms:.4f} ms in all (per step, in turns); "
+            f"{lane_evals} residual evaluations; SIMT efficiency of one "
+            f"thread per lane, mean over steps, per warp "
+            f"{statistics.mean(r[3]['simt'] for r in rows):.4f}, per "
+            f"256-lane block {statistics.mean(r[3]['block'] for r in rows):.4f}"
+            f"; B1's three worst steps against the baseline: "
+            + "; ".join(f"step {k}: {b:.4f} against {a:.4f} ms, trips mean "
+                        f"{st['mean']:.3f} max {st['max']}, SIMT efficiency "
+                        f"per warp {st['simt']:.4f} per block {st['block']:.4f}"
+                        for k, a, b, st in worst) + f"  [{smi}]")
+
+
+_WINDOWS_LINE = re.compile(
+    r"cold best ([\d.]+) s median ([\d.]+) s -> ([\d.e+]+) seg-ts/s; warm "
+    r"best ([\d.]+) s median ([\d.]+) s -> ([\d.e+]+) seg-ts/s")
+
+
+def main_path_turns(base: Path, n: int, nts: int, smi: str) -> None:
+    """Phase 4's windows of the checkout ``base`` (its ``chip_smoke.py``'s
+    ``phase_main_path``) and of this one (``main_path_windows``), each in a
+    process of its own, in turns: baseline, this, this, baseline.  Logs
+    each turn's cold and warm windows (best and median s, seg-ts/s)."""
+    calls = {"baseline": (base, f"phase_main_path('cuda:0', {n}, {nts}, "
+                                f"{smi!r})"),
+             "this": (ROOT, f"main_path_windows('cuda:0', {n}, {nts}, "
+                            f"{smi!r})")}
+    for turn, name in enumerate(("baseline", "this", "this", "baseline")):
+        root, call = calls[name]
+        code = (f"import sys; sys.path[:0] = [{str(root)!r}, "
+                f"{str(root / 'tests')!r}]; import chip_smoke; "
+                f"chip_smoke.{call}")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        m = _WINDOWS_LINE.search(proc.stdout)
+        if proc.returncode != 0 or m is None:
+            raise AssertionError(f"main-path turn {turn} ({name}) failed: "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        cb, cm, cr, wb, wm, wr = m.groups()
+        log(f"phase 4 turns: {turn} {name} ({root}): cold best {cb} s median "
+            f"{cm} s -> {cr} seg-ts/s (median "
+            f"{n * nts / float(cm):.4e}); warm best {wb} s median {wm} s -> "
+            f"{wr} seg-ts/s (median {n * nts / float(wm):.4e})  [{smi}]")
+
+
+def warm_step_args(net, cp, q, d, qlat):
+    """B1's inputs for one short step from state (q, d) and lateral inflow
+    ``qlat`` [N], padded to the plan's length as ``_one_short_step`` pads
+    them."""
+    import torch
+    from troute_torch.routing import engine
+    padz = q.new_zeros(net.uplan.n_pad - q.shape[0])
+    qp = torch.cat([q, padz])
+    args = [engine._upstream_sum_stepped(qp, net.upstream, net.uplan)] * 2 \
+        + [qp, torch.cat([qlat, padz])] \
+        + [torch.cat([c, padz + 1.0]) for c in cp] \
+        + [torch.cat([d, padz])]
+    return [a.contiguous() for a in args]
 
 
 def _skip_vs_plain(args, active, prev, full, what: str, inputs=None):
@@ -674,7 +1117,7 @@ def profile_window(fn) -> dict:
                 top=[(k, round(v / 1e3, 3)) for k, v in top])
 
 
-def phase_strict_main_path(device, ctx: dict, smi: str) -> dict:
+def phase_strict_main_path(device, dev: dict, ctx: dict) -> dict:
     """bench.py:482-515 and benchmarks/bench_strict_skip.py on the port:
     12-step strict windows from phase 4's warm state, block skip off and
     on (accelerator "auto", on), and the plain Jacobi sweeps (accelerator
@@ -684,7 +1127,7 @@ def phase_strict_main_path(device, ctx: dict, smi: str) -> dict:
     from troute_torch.ops.muskingum import solve_block_skip
     from troute_torch.routing import engine
 
-    nts, n = 12, int(ctx["q"].shape[0])
+    nts, n, smi = 12, int(ctx["q"].shape[0]), dev["smi"]
     zeros1 = torch.zeros(1, dtype=torch.float32, device=device)
     cfgs = {name: engine.RoutingConfig(
                 dt=DT, nts=nts, qts_subdivisions=2, assume_short_ts=False,
@@ -781,14 +1224,43 @@ def phase_strict_main_path(device, ctx: dict, smi: str) -> dict:
                                             prev=kw["prev"]))
     b1_ms = cuda_ms(lambda: mcc.muskingum_cunge_cuda(
         *args, DT, with_diagnostics=diag), reps=20)
-    log(f"phase 7: one skip sweep, {args[0].shape[0]} lanes f32, "
-        f"{blocks:.4f} of blocks active: B2 {b2_ms:.3f} ms, plain "
-        f"{p_ms:.3f} ms, B1 {b1_ms:.3f} ms; bit for bit (max abs "
-        f"{max_abs:.3g})  [{smi}]")
-    return dict(launches=launched, max_abs=max_abs, ms=b2_ms, plain_ms=p_ms)
+    # B2's bound: the solved lanes' evaluations (B1's on the same inputs),
+    # 13 inputs read on solved lanes and `prev` read on the others, every
+    # output written once, one flag per block
+    _, trips, evals = mcc.muskingum_cunge_cuda(
+        *args, DT, with_diagnostics=diag, return_trips=True)
+    st = trip_stats(trips[ran], evals[ran])
+    n_out, n_ran = (6 if diag else 3), int(ran.sum())
+    n_lanes = int(args[0].shape[0])
+    bound = kernel_bound(dev, 4 * (13 * n_ran + n_out * (n_lanes - n_ran)
+                                   + n_out * n_lanes
+                                   + mcc.block_flags(ran).numel()),
+                         st["lane_evals"])
+    log(f"phase 7: one skip sweep, {n_lanes} lanes f32, {blocks:.4f} of "
+        f"blocks active: B2 {b2_ms:.3f} ms, plain {p_ms:.3f} ms, B1 "
+        f"{b1_ms:.3f} ms; bit for bit (max abs {max_abs:.3g}); solved lanes' "
+        f"trips mean {st['mean']:.4f} max {st['max']}, evaluations mean "
+        f"{st['evals_mean']:.4f}; bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})  [{smi}]")
+    return dict(launches=launched, max_abs=max_abs, ms=b2_ms, plain_ms=p_ms,
+                trips_mean=st["mean"], trips_max=st["max"],
+                evals_mean=st["evals_mean"], **bound)
+
+
+def foreign_modules() -> list[str]:
+    """Modules of JAX, of the JAX package or of its ``bench.py`` that this
+    process has imported."""
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "troute_tpu", "bench")
+                  or m.startswith(("jax.", "jaxlib", "troute_tpu.")))
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="checkout whose B1 (one thread per lane) is timed "
+                         "in turns with this one")
+    opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -801,28 +1273,40 @@ def main() -> int:
     device = "cuda:0"
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
-    smi = phase_device(device)
-    phase_kernel_vs_plain(device, n32=N_CONUS, n64=1_000_000)
+    dev = phase_device(device)
+    baseline = None if opts.baseline is None else BaselineB1(
+        opts.baseline / "troute_torch" / "csrc" / "mc_secant.cu")
+    r = phase_kernel_vs_plain(device, dev, n32=N_CONUS, n64=1_000_000,
+                              baseline=baseline)
     phase_engine_card_vs_cpu(device, n=200_000, nts=24)
-    m = phase_main_path(device, n=N_CONUS, nts=24, smi=smi)
+    m = phase_main_path(device, dev, n=N_CONUS, nts=24, baseline=baseline)
     phase_skip_vs_plain(device, n32=N_CONUS, n64=1_000_000)
     phase_strict_card_vs_cpu(device, n=50_000, nts=6)
-    s = phase_strict_main_path(device, m["setup"], smi)
-    if "jax" in sys.modules:
-        raise AssertionError("the port's run imported JAX")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    s = phase_strict_main_path(device, dev, m["setup"])
+    if opts.baseline is not None:
+        del m["setup"]
+        main_path_turns(opts.baseline, n=N_CONUS, nts=24, smi=dev["smi"])
+    if foreign_modules():
+        raise AssertionError(f"the port's run imported {foreign_modules()}")
+    log(f"total {time.perf_counter() - t_start:.1f} s; imported nothing of "
+        f"JAX, troute_tpu or bench.py")
     src = "troute_torch/csrc/mc_secant.cu"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "trips_mean",
+            "trips_max", "evals_mean")
     print(json.dumps({"kernels": [
         {"name": "mc_secant", "route": "cuda", "source": src,
          "replaces": "troute_tpu/ops/muskingum_pallas.py:42",
          "launches": m["launches"] + s["launches"]["mc_secant"],
-         "max_abs_err": m["max_abs"], "ms": m["ms"],
-         "plain_ms": m["plain_ms"]},
+         "max_abs_err": max(m["max_abs"], r["max_abs"]),
+         **{k: m[k] for k in keys}, "library_ms": None,
+         "floor_ms": m["floor_ms"], "baseline_ms": m["baseline_ms"],
+         "conus_ranges": {k: r[k] for k in keys + ("floor_ms",
+                                                   "baseline_ms")}},
         {"name": "mc_secant_skip", "route": "cuda", "source": src,
          "replaces": "troute_tpu/ops/muskingum_pallas.py:51",
          "launches": s["launches"]["mc_secant_skip"],
-         "max_abs_err": s["max_abs"], "ms": s["ms"],
-         "plain_ms": s["plain_ms"]}]}))
+         "max_abs_err": s["max_abs"], **{k: s[k] for k in keys},
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,7 +32,8 @@ import pytest
 import torch
 
 import bench
-from chip_smoke import conus_range_inputs
+from chip_smoke import conus_range_inputs, warm_step_args
+from troute_torch import synthetic
 from troute_torch.network.topology import build_topology_postorder
 from troute_torch.ops import muskingum_cuda
 from troute_torch.ops import muskingum as mc
@@ -72,6 +73,70 @@ def test_kernel_matches_plain_on_card(cuda, dtype, diagnostics):
                                    else 1e-6, atol=1e-12)
     for g in got[n_out:]:
         assert not bool(g.any())
+
+
+def _b1_inputs(case, dtype, device):
+    """B1's inputs for one case: the CONUS ranges, their first ``case``
+    lanes (an int), retry-heavy lanes interleaved with no-flow lanes, or one
+    warm short step of a 20,000-segment network routed on the card."""
+    if case == "warm_step":
+        n = 20_000
+        ids, down = synthetic.synthetic_conus(n, n_basins=50)
+        rng = np.random.default_rng(7)
+        net = engine.network_arrays_from_topology(
+            build_topology_postorder(ids, down), device=device)
+        cp = engine.ChannelParams.from_arrays(
+            device=device, dtype=dtype, **synthetic.channel_params(n, rng))
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+        qlat = t(rng.uniform(0.1, 2.0, (2, n)))
+        out = engine.route_stepped(
+            net, cp, LevelpoolParams(*[t(np.ones(1))] * 9),
+            engine.RoutingConfig(dt=DT, nts=12, qts_subdivisions=6,
+                                 assume_short_ts=True),
+            t(rng.uniform(0.5, 5.0, n)), t(rng.uniform(0.05, 0.8, n)),
+            t(np.zeros(1)), qlat)
+        return warm_step_args(net, cp, out["state"].q, out["state"].depth,
+                              qlat[0])
+    args = _conus_range(65536, dtype, device)
+    if isinstance(case, int):
+        return [a[:case].contiguous() for a in args]
+    trips = solve_block(*args, dt=DT, return_trips=True)[6]
+    heavy = torch.nonzero(trips > 100).flatten()
+    assert heavy.numel() >= 8
+    mix = []
+    for k, a in enumerate(args):
+        h = a[heavy]
+        z = torch.zeros_like(h) if k < 4 else h  # qup, quc, qdp, ql
+        mix.append(torch.stack([h, z], dim=1).reshape(-1).contiguous())
+    return mix
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["conus_ranges", "warm_step", "retry_mix",
+                                  0, 1, 31, 33, 257, 1003])
+def test_b1_bits_and_trips_match_plain_on_card(cuda, dtype, case):
+    """The persistent B1 against ``solve_block`` on the card: f32 bit for
+    bit, f64 rtol 1e-9; per-lane trips and evaluations equal; two calls
+    bit-identical (the order in which lanes are claimed changes nothing)."""
+    args = _b1_inputs(case, dtype, cuda)
+    got, trips, evals = muskingum_cuda.muskingum_cunge_cuda(
+        *args, DT, return_trips=True)
+    again, trips2, evals2 = muskingum_cuda.muskingum_cunge_cuda(
+        *args, DT, return_trips=True)
+    want = solve_block(*args, dt=DT, return_trips=True)
+    torch.cuda.synchronize()
+    assert trips.dtype == torch.int32 and evals.dtype == torch.int32
+    assert torch.equal(trips, want[6]) and torch.equal(trips, trips2)
+    assert torch.equal(evals, want[7]) and torch.equal(evals, evals2)
+    if case == "retry_mix":
+        assert int(trips[1::2].max()) == 0 and int(trips[::2].min()) > 100
+    for g, a, w in zip(got, again, want[:6]):
+        assert torch.equal(g, a)
+        if dtype == torch.float32:
+            assert torch.equal(g, w)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=1e-9, atol=1e-12)
 
 
 def test_launch_count_and_checks(cuda):

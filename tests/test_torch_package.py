@@ -1,12 +1,15 @@
 """The port stands on PyTorch alone: importing ``troute_torch`` and
-routing a network with it loads no JAX, and no file of the package
-imports JAX."""
+routing a network with it loads no JAX, nothing of the JAX package
+(``troute_tpu``) and not its ``bench.py``, and no file of the package or
+``chip_smoke.py`` imports them."""
 
 import os
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -57,5 +60,41 @@ def test_no_file_of_the_port_imports_jax():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     files = sorted((REPO / "troute_torch").rglob("*.py"))
     assert files
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+_PROBE_ALL = """
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+import troute_torch
+for m in pkgutil.walk_packages(troute_torch.__path__, "troute_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+""" + _PROBE.split("import troute_torch", 1)[1].replace(
+    'print("jax" in sys.modules, any(m.startswith("jax.") for m in sys.modules))',
+    'print("FOREIGN", chip_smoke.foreign_modules())')
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    process that then routes a tiny network on the CPU: no module of JAX,
+    of ``troute_tpu`` or ``bench`` is loaded."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_ENABLE_X64", "XLA_FLAGS")}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _PROBE_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-2:] == ["FOREIGN", "[]"], res.stdout
+
+
+@pytest.mark.parametrize("name", ["troute_tpu", "bench", "jax"])
+def test_no_source_of_the_port_imports_the_jax_side(name):
+    pat = re.compile(rf"^\s*(import\s+{name}\b|from\s+{name}[\s.])", re.M)
+    files = sorted((REPO / "troute_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+    assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -172,12 +172,17 @@ def muskingum_cunge(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
 
 
 def solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
-                depthp, dt, max_trips: int | None = None):
+                depthp, dt, max_trips: int | None = None,
+                return_trips: bool = False):
     """Core solve on same-shaped tensors.
 
     Returns the tuple (qdc, velc, depthc, ck, cn, X).  The loop runs until
     every lane of the batch has converged; converged lanes hold their
     values, so each lane's result does not depend on the batch around it.
+    ``return_trips`` appends two int32 counts per lane, as the kernel's
+    ``trip`` makes them: the trips, passes of the loop in which the lane
+    was still active (0 without flow), and the evaluations, the trips that
+    passed the top check and evaluated the residual.
     """
     dt = torch.full_like(qup, float(dt))
 
@@ -206,13 +211,17 @@ def solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
         return _secant2_h(hh, interval, qj_in, c_in, qup, quc, qdp, ql,
                           z, bw, bfd, twcc, s0, n, ncc, dt, dx)
 
+    lane_trips = torch.zeros_like(it)
+    lane_evals = torch.zeros_like(it)
     trips = 0
     while bool(active.any()) and (max_trips is None or trips < max_trips):
         trips += 1
+        lane_trips = lane_trips + active.to(torch.int32)
         # top-of-loop check (reference do-while condition, .f90:83)
         run = active & (rerror > 0.01) & (aerror >= MINDEPTH) \
             & (it <= maxiter)
         finished_loop = active & ~run
+        lane_evals = lane_evals + run.to(torch.int32)
 
         qj0_new, c1a, c2a, c3a, c4a, _ = secant(h_0, 1, qj0_slot, None)
         qj_new, c1b, c2b, c3b, c4b, x2 = secant(h, 2, None,
@@ -297,6 +306,8 @@ def solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
         0.0)
     cn = ck * (dt / dx)
 
+    if return_trips:
+        return qdc, velc, depthc, ck, cn, x_out, lane_trips, lane_evals
     return qdc, velc, depthc, ck, cn, x_out
 
 

@@ -1,20 +1,25 @@
 """CUDA kernels for the Muskingum-Cunge secant solve, and their wrapper.
 
 Port of ``troute_tpu/ops/muskingum_pallas.py:muskingum_cunge_pallas``.
-Both kernels live in ``troute_torch/csrc/mc_secant.cu`` and run one thread
-per segment with the reference's scalar control flow, so each lane stops
-iterating as soon as it converges.  Results per lane do not depend on the
-launch geometry, so the kernels agree lane for lane with the plain
-versions in ``ops/muskingum.py``:
+Both kernels live in ``troute_torch/csrc/mc_secant.cu`` and run the
+reference's scalar control flow per segment, so each lane stops iterating
+as soon as it converges.  Results per lane do not depend on the launch
+geometry or on which thread solves the lane, so the kernels agree lane for
+lane with the plain versions in ``ops/muskingum.py``:
 
-* B1 (``mc_secant``) solves every lane; plain version ``solve_block``.
+* B1 (``mc_secant``) solves every lane on a persistent grid whose
+  converged lanes refill, in batches per warp, from a work counter that
+  the wrapper zeroes for each call; plain version ``solve_block``.  With
+  ``return_trips`` it also returns each lane's secant trips and residual
+  evaluations (int32), as ``solve_block(..., return_trips=True)`` does.
 * B2 (``mc_secant_skip``), the block-skip form of strict fixed-point
-  sweeps, takes per-lane ``active_rows`` and a previous call's outputs
-  ``prev``; a block of ``SKIP_BLOCK`` lanes none of whose lanes is active
-  copies ``prev`` through instead of solving.  Plain version
-  ``solve_block_skip``.  ``prev`` is read in the order of the outputs,
-  (qdc, velc, depthc, ck, cn, X); the TPU wrapper reads it with ck and cn
-  swapped (``muskingum_pallas.py:172-173``), which the port does not copy.
+  sweeps, one thread per lane, takes per-lane ``active_rows`` and a
+  previous call's outputs ``prev``; a block of ``SKIP_BLOCK`` lanes none
+  of whose lanes is active copies ``prev`` through instead of solving.
+  Plain version ``solve_block_skip``.  ``prev`` is read in the order of
+  the outputs, (qdc, velc, depthc, ck, cn, X); the TPU wrapper reads it
+  with ck and cn swapped (``muskingum_pallas.py:172-173``), which the
+  port does not copy.
 
 For CPU tensors the wrapper runs the plain version.  For CUDA tensors it
 launches the kernel or raises; nothing falls back.  The TPU wrapper's
@@ -52,8 +57,10 @@ def _kernel(dtype: torch.dtype, skip: bool):
         name = name.replace("mc_secant", "mc_secant_skip")
     fn = getattr(_build.load("mc_secant"), name)
     if fn.argtypes is None:
+        # after dt: 6 outputs, then B1's trips, evaluations and work
+        # counter, or B2's 6 prev and its flags
         fn.argtypes = ([ctypes.c_void_p] * _N_IN + [c_real]
-                       + [ctypes.c_void_p] * (13 if skip else 6)
+                       + [ctypes.c_void_p] * (13 if skip else 9)
                        + [ctypes.c_int64, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -98,7 +105,8 @@ def block_active_lanes(active_rows: torch.Tensor) -> torch.Tensor:
 
 def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
                          depthp, dt: float, with_diagnostics: bool = True,
-                         active_rows=None, prev=None) -> mc.MCOutput:
+                         active_rows=None, prev=None,
+                         return_trips: bool = False):
     """One MC timestep for 1-D segment tensors of one shape and dtype.
 
     ``dt`` is a Python float.  ``with_diagnostics=False`` skips the
@@ -107,7 +115,10 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     same lanes) selects the block-skip kernel B2: a block none of whose
     lanes is active returns ``prev``'s values for its lanes.  The caller
     guarantees that ``active_rows`` marks every lane whose inputs moved
-    since the call that produced ``prev``.
+    since the call that produced ``prev``.  ``return_trips`` (B1 only)
+    returns ``(MCOutput, trips, evals)``: each lane's int32 secant trips
+    and the trips among them that evaluated the residual (both 0 for a
+    lane without flow).
     """
     global LAUNCHES, SKIP_LAUNCHES
     args = (qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp)
@@ -115,6 +126,8 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     skip = active_rows is not None
     if skip != (prev is not None):
         raise ValueError("active_rows and prev go together")
+    if skip and return_trips:
+        raise ValueError("return_trips is for the full solve (B1) only")
     _check(args + (tuple(prev[:n_out]) if skip else ()))
     if skip and (active_rows.shape != qup.shape
                  or active_rows.dtype != torch.bool
@@ -127,16 +140,27 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
                                       ran=block_active_lanes(active_rows),
                                       prev=prev)
         else:
-            out = mc.solve_block(*args, dt=float(dt))
+            out = mc.solve_block(*args, dt=float(dt),
+                                 return_trips=return_trips)
+            if return_trips:
+                out, trips, evals = out[:6], out[6], out[7]
     elif qup.device.type == "cuda":
         nseg = qup.shape[0]
         out = [torch.empty_like(qup) for _ in range(n_out)]
+        trips, evals = ([torch.zeros(nseg, dtype=torch.int32,
+                                     device=qup.device) for _ in range(2)]
+                        if return_trips else (None, None))
         if nseg:
             ptrs = [o.data_ptr() for o in out] + [None] * (6 - n_out)
             if skip:
                 flags = block_flags(active_rows).to(torch.int32)
                 ptrs += [p.data_ptr() for p in prev[:n_out]] \
                     + [None] * (6 - n_out) + [flags.data_ptr()]
+            else:
+                # B1's work counter, zeroed on the launch stream
+                counter = torch.zeros(1, dtype=torch.int32, device=qup.device)
+                ptrs += [None if c is None else c.data_ptr()
+                         for c in (trips, evals)] + [counter.data_ptr()]
             with torch.cuda.device(qup.device):
                 stream = torch.cuda.current_stream(qup.device).cuda_stream
                 rc = _kernel(qup.dtype, skip)(*[a.data_ptr() for a in args],
@@ -153,4 +177,6 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     if not with_diagnostics:
         z = torch.zeros_like(qup)
         out = list(out[:3]) + [z, z, z]
+    if return_trips:
+        return mc.MCOutput(*out), trips, evals
     return mc.MCOutput(*out)

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from troute_tpu.network.topology import NODE_RESERVOIR
+from troute_torch.network.topology import NODE_RESERVOIR
 from troute_torch.ops.levelpool import LevelpoolParams, levelpool_step
 from troute_torch.ops.muskingum_cuda import (block_active_lanes,
                                              muskingum_cunge_cuda)

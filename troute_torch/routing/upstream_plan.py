@@ -14,10 +14,8 @@ gather form adds in the same order as the banded form; f32 parity with
 the JAX engine depends on that order.
 
 ``UpstreamPlan``, ``postorder`` and ``build_upstream_plan`` are NumPy,
-copied from the JAX module with their behaviour unchanged, because
-importing that module imports JAX: it registers ``UpstreamOp`` as a JAX
-pytree at import, and its package ``troute_tpu.routing`` imports the JAX
-engine.
+copied from the JAX module with their behaviour unchanged: the port
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -61,13 +59,18 @@ def postorder(downstream: np.ndarray, upstream: np.ndarray) -> np.ndarray:
     """Post-order DFS of the drainage forest: children before parents,
     subtrees contiguous.  Returns [N] new position -> original row.
 
-    Native kernel when available (the Python DFS costs ~6 s at CONUS
-    scale vs ~50 ms native); both produce the identical order
-    (tailwaters ascending, children in upstream-column order)."""
-    from troute_tpu import native
+    The port's native function when it builds (``troute_torch.native``;
+    the Python DFS costs ~6 s at CONUS scale vs ~50 ms native), else
+    ``postorder_numpy``; both give the identical order (tailwaters
+    ascending, children in upstream-column order)."""
+    from troute_torch import native
     nat = native.postorder_forest(downstream, upstream)
-    if nat is not None:
-        return nat
+    return postorder_numpy(downstream, upstream) if nat is None else nat
+
+
+def postorder_numpy(downstream: np.ndarray, upstream: np.ndarray
+                    ) -> np.ndarray:
+    """``postorder`` in Python: the fallback without the native library."""
     n = downstream.shape[0]
     order = np.empty(n, np.int64)
     pos = 0
