@@ -49,14 +49,36 @@ Run from the root of a checkout, with no arguments:
    accelerator off, one warm-up window each, then 4 interleaved timed
    turns, with launches counted; one profiled window of each for the
    device's idle share; then B2 and the plain version on one real skip
-   sweep's inputs, captured from a further window.
+   sweep's inputs, captured from a further window, with B2's bound and its
+   slowest solved lane alone.
+8. The command line on the card: a geopackage of the synthetic CONUS
+   network (2,729,077 flowpaths, level-pool lakes, gages), NEXOUT CSV
+   forcing for 2 run sets of 24 steps and a YAML control file are written
+   under a temporary directory, and ``troute_torch.cli.main_v04(["-f",
+   ...])`` runs them in short mode: outputs finite, the CSV (and parquet)
+   subsets and the lite restarts read back, B1 launched once per step, the
+   boundary restart equal to the first run set's last step; ``task_times``
+   and seg-ts/s of the route part and of the whole command.  Then the same
+   control file on a 100,000-flowpath domain: on the card against
+   ``--cpu`` (the f32 bar), two run sets against one (the f32 bar: the
+   second set is warm from the first), and 12 steps with
+   ``strict_iterative`` and ``strict_block_skip`` on from the first run
+   set's restart, so that B2 launches under the command line: B1's and
+   B2's launches equal the engine's own MC call counts.  Last, on a
+   25,000-flowpath domain, that strict control file (6 steps) on the card
+   against ``--cpu``: the strict f32 bar of phase 6.  NetCDF inputs
+   (TimeSlice observations for nudging) need ``h5py`` and are not part of
+   this phase.
 
-``--baseline DIR`` (a checkout of an earlier commit with the
-one-thread-per-lane B1, e.g. the parent commit unpacked with ``git
-archive``) also builds ``DIR/troute_torch/csrc/mc_secant.cu`` and times it
-in turns with this B1 on the inputs of phases 2 and 4 and on each step
-of one cold and one warm phase-4 window (baseline, kernel, kernel,
-baseline), and at the end runs phase 4's windows of ``DIR``'s
+``--baseline DIR`` (a checkout of an earlier commit, e.g. unpacked with
+``git archive``: its B2 is one CUDA block per flag block and takes the
+first C interface, with no work counter; its B1 is either one thread per
+lane with that interface or the persistent grid with trips, evaluations
+and the counter) also builds ``DIR/troute_torch/csrc/mc_secant.cu`` and
+times both of its kernels in turns with this checkout's (baseline, kernel,
+kernel, baseline), bit for bit: B1 on the inputs of phases 2 and 4 and on
+each step of one cold and one warm phase-4 window, B2 on phase 7's
+captured skip sweep.  At the end it runs phase 4's windows of ``DIR``'s
 ``chip_smoke.py`` and of this one, each in a process of its own, in the
 same turns, for the cold and warm seg-ts/s of both.
 
@@ -171,6 +193,23 @@ def check_f64(got_list, want_list, what: str, inputs=None) -> np.ndarray:
                                             1e-9 * abs(ref[k]) + 1e-12):
                     raise AssertionError(f"{what}: lane {i} output {k}")
     return lanes
+
+
+def check_strict_f32(got, want, what: str) -> str:
+    """The strict runs' f32 bar.  The f32 secant stops on a relative step,
+    so a last-ulp difference can change a lane's trip count and move the
+    strict fixed point past rtol/atol 1e-4 on a few values; on the CPU
+    alone, a 2-ulp nudge of a warm start does so on 166 of 900,000 values
+    (max rel 1.3e-2).  So: the f32 bar, and at most 1e-3 of the values past
+    rtol/atol 1e-4.  Returns the reading as text."""
+    ok = ~np.isnan(want)
+    st = check_f32_bar(got[ok], want[ok], what, max_share=1e-5)
+    off = int((~np.isclose(got[ok], want[ok], rtol=1e-4, atol=1e-4)).sum())
+    if off > 1e-3 * ok.sum():
+        raise AssertionError(f"{what}: {off} values past rtol/atol 1e-4")
+    return (f"f32 bar: median {st['median']:.3g}, p95 {st['p95']:.3g}, max "
+            f"{st['max']:.3g}; {off} of {ok.sum()} values past rtol/atol "
+            f"1e-4, max abs {float(np.abs(got[ok] - want[ok]).max()):.3g}")
 
 
 def cuda_ms(fn, reps: int = 5, warm_up: bool = True) -> float:
@@ -318,10 +357,20 @@ def phase_device(device) -> dict:
         (lib, _), (probe_lib, ptxas), host_ok = (
             kernels.result(), probes.result(), host.result())
     _build.load("mc_secant")
+    if not host_ok:
+        raise AssertionError("the host topology library did not build "
+                             "(troute_torch/native.py logged why)")
     log(f"phase 1: built {lib.relative_to(ROOT)}, "
         f"{probe_lib.relative_to(ROOT)} (probes, -Xptxas -v) and the host "
-        f"topology library ({'native' if host_ok else 'NumPy fallbacks'}) "
-        f"in {time.perf_counter() - t0:.2f} s")
+        f"topology library in {time.perf_counter() - t0:.2f} s")
+    import importlib.util
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("pandas", "pydantic", "yaml", "sqlite3", "pyarrow",
+                      "h5py", "netCDF4")}
+    log(f"phase 1: packages the command line may use: {have}")
+    for m in ("pandas", "pydantic", "yaml", "sqlite3"):
+        if not have[m]:
+            raise AssertionError(f"the command line needs {m}")
     regs = ptxas_report(ptxas)
     usage = {}
     for name, pat in (("B1 f32", r"mc_secant_kernelIf"),
@@ -342,7 +391,7 @@ def phase_device(device) -> dict:
         f"in-bank path, no divide or sqrt slow path): {per_eval['instr']} "
         f"instructions, {per_eval['mufu']} MUFU")
     return dict(smi=smi, clock_hz=clock_mhz * 1e6, per_eval=per_eval,
-                registers=usage)
+                registers=usage, pyarrow=have["pyarrow"])
 
 
 def kernel_bound(dev: dict, n_bytes: float, lane_evals: int) -> dict:
@@ -385,31 +434,59 @@ def trip_stats(trips, evals) -> dict:
                 lane_evals=int(e.sum()), simt=eff(32), block=eff(256))
 
 
-class BaselineB1:
-    """An earlier B1 (``src``, one thread per lane), built from its source
-    and called through its C interface: 13 inputs, dt, 6 outputs, nseg,
-    stream."""
+class Baseline:
+    """An earlier checkout's kernels, built from its source ``src`` and
+    called through their C interfaces.  B1 (``__call__``): 13 inputs, dt, 6
+    outputs, then, where the source's B1 is the persistent grid, trips,
+    evaluations and the work counter, then nseg and the stream.  B2
+    (``skip``, f32, one CUDA block per flag block): the 6 ``prev`` and the
+    int32 block flags after the outputs, no counter."""
 
     def __init__(self, src: Path):
         from troute_torch import _build
         path, _ = _build.compile_cached(_build.find_nvcc(),
                                         _build.NVCC_FLAGS, src)
         self.lib, self.fn = ctypes.CDLL(str(path)), {}
+        self.counter = re.search(r"int mc_secant_f32\([^)]*int32_t\* next",
+                                 src.read_text()) is not None
         for dt, name, c_real in (("float32", "mc_secant_f32", ctypes.c_float),
                                  ("float64", "mc_secant_f64",
                                   ctypes.c_double)):
             fn = getattr(self.lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 13 + [c_real]
-                           + [ctypes.c_void_p] * 6
+                           + [ctypes.c_void_p] * (9 if self.counter else 6)
                            + [ctypes.c_int64, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self.fn[dt] = fn
-        log(f"built {path.name} from {src}")
+        self.skip_fn = self.lib.mc_secant_skip_f32
+        self.skip_fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_float]
+                                 + [ctypes.c_void_p] * 13
+                                 + [ctypes.c_int64, ctypes.c_void_p])
+        self.skip_fn.restype = ctypes.c_int
+        log(f"built {path.name} from {src} (its B1 "
+            f"{'persistent' if self.counter else 'one thread per lane'})")
+
+    def skip(self, args, diag: bool, prev, flags):
+        """The baseline's B2 (f32) on ``args`` with int32 block ``flags``."""
+        import torch
+        n_out = 6 if diag else 3
+        out = [torch.empty_like(args[0]) for _ in range(n_out)]
+        ptrs = [o.data_ptr() for o in out] + [None] * (6 - n_out) \
+            + [p.data_ptr() for p in prev[:n_out]] + [None] * (6 - n_out)
+        rc = self.skip_fn(*[a.data_ptr() for a in args], DT, *ptrs,
+                          flags.data_ptr(), args[0].shape[0],
+                          torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline B2 launch failed: CUDA error {rc}")
+        return out
 
     def __call__(self, args, diag: bool):
         import torch
         out = [torch.empty_like(args[0]) for _ in range(6 if diag else 3)]
         ptrs = [o.data_ptr() for o in out] + [None] * (6 - len(out))
+        if self.counter:
+            counter = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+            ptrs += [None, None, counter.data_ptr()]
         stream = torch.cuda.current_stream().cuda_stream
         rc = self.fn[str(args[0].dtype).split(".")[-1]](
             *[a.data_ptr() for a in args], DT, *ptrs, args[0].shape[0],
@@ -774,7 +851,7 @@ def main_path_windows(device, n: int, nts: int, smi: str) -> dict:
         return out, dt
 
     torch.cuda.reset_peak_memory_stats(device)
-    mcc.LAUNCHES = 0
+    mcc.LAUNCHES = mcc.SKIP_LAUNCHES = 0
     out, first_s = window(q0, d0, qlats[0])
     cold = [window(q0, d0, qlats[0])[1] for _ in range(5)]
     q_w, d_w = out["state"].q, out["state"].depth
@@ -784,21 +861,24 @@ def main_path_windows(device, n: int, nts: int, smi: str) -> dict:
         q_w, d_w = out["state"].q, out["state"].depth
         if i >= 3:
             warm.append(dt)
-    launches = mcc.LAUNCHES
+    launches, skip_launches = mcc.LAUNCHES, mcc.SKIP_LAUNCHES
     windows = 1 + len(cold) + 13
-    if launches != windows * nts:
-        raise AssertionError(f"{launches} kernel launches for {windows} "
-                             f"windows of {nts} steps")
+    if launches != windows * nts or skip_launches != 0:
+        raise AssertionError(f"{launches} B1 and {skip_launches} B2 launches "
+                             f"for {windows} short-mode windows of {nts} "
+                             f"steps")
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     seg = n * nts
-    log(f"phase 4: {launches} kernel launches = {nts} per window x "
-        f"{windows} windows; all outputs finite; peak {peak_gb:.2f} GB")
+    log(f"phase 4: {launches} B1 launches = {nts} per window x {windows} "
+        f"windows, {skip_launches} B2 launches; all outputs finite; peak "
+        f"{peak_gb:.2f} GB")
     log(f"phase 4: first window {first_s:.3f} s; cold best "
         f"{min(cold):.4f} s median {statistics.median(cold):.4f} s -> "
         f"{seg / min(cold):.4e} seg-ts/s; warm best {min(warm):.4f} s "
         f"median {statistics.median(warm):.4f} s -> "
         f"{seg / min(warm):.4e} seg-ts/s  [{smi}]")
-    return dict(launches=launches, cold=cold, warm=warm,
+    return dict(launches=launches, skip_launches=skip_launches, cold=cold,
+                warm=warm,
                 setup=dict(net=net, cp=cp, lp=lp, cfg=cfg, qlats=qlats, q=q_w,
                            d=d_w, q0=q0, d0=d0))
 
@@ -895,18 +975,19 @@ _WINDOWS_LINE = re.compile(
 
 def main_path_turns(base: Path, n: int, nts: int, smi: str) -> None:
     """Phase 4's windows of the checkout ``base`` (its ``chip_smoke.py``'s
-    ``phase_main_path``) and of this one (``main_path_windows``), each in a
+    ``main_path_windows``, or ``phase_main_path`` where it has none) and of
+    this one (``main_path_windows``), each in a
     process of its own, in turns: baseline, this, this, baseline.  Logs
     each turn's cold and warm windows (best and median s, seg-ts/s)."""
-    calls = {"baseline": (base, f"phase_main_path('cuda:0', {n}, {nts}, "
-                                f"{smi!r})"),
-             "this": (ROOT, f"main_path_windows('cuda:0', {n}, {nts}, "
-                            f"{smi!r})")}
+    calls = {"baseline": (base, f"(getattr(chip_smoke, 'main_path_windows', "
+                                f"None) or chip_smoke.phase_main_path)("
+                                f"'cuda:0', {n}, {nts}, {smi!r})"),
+             "this": (ROOT, f"chip_smoke.main_path_windows('cuda:0', {n}, "
+                            f"{nts}, {smi!r})")}
     for turn, name in enumerate(("baseline", "this", "this", "baseline")):
         root, call = calls[name]
         code = (f"import sys; sys.path[:0] = [{str(root)!r}, "
-                f"{str(root / 'tests')!r}]; import chip_smoke; "
-                f"chip_smoke.{call}")
+                f"{str(root / 'tests')!r}]; import chip_smoke; {call}")
         proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                               capture_output=True, text=True, timeout=600)
         m = _WINDOWS_LINE.search(proc.stdout)
@@ -1056,24 +1137,7 @@ def phase_strict_card_vs_cpu(device, n: int, nts: int) -> None:
             bar = (f"rtol 1e-9 / atol 1e-8 (10 strict_tol) off at "
                    f"{st['off']} of {st['n']} values, max rel {st['max']:.3g}")
         else:
-            # the f32 secant stops on a relative step, so a last-ulp
-            # difference can change a lane's trip count and move the
-            # strict fixed point past rtol/atol 1e-4 on a few values; on
-            # the CPU alone, a 2-ulp nudge of this warm start does so on
-            # 166 of 900,000 values (max rel 1.3e-2).  So: the f32 bar,
-            # and at most 1e-3 of the values past rtol/atol 1e-4
-            ok = ~np.isnan(want)
-            st = check_f32_bar(got[ok], want[ok], "strict f32",
-                               max_share=1e-5)
-            off = int((~np.isclose(got[ok], want[ok], rtol=1e-4,
-                                   atol=1e-4)).sum())
-            if off > 1e-3 * ok.sum():
-                raise AssertionError(f"strict f32: {off} values past "
-                                     f"rtol/atol 1e-4")
-            bar = (f"f32 bar: median {st['median']:.3g}, p95 "
-                   f"{st['p95']:.3g}, max {st['max']:.3g}; {off} of "
-                   f"{ok.sum()} values past rtol/atol 1e-4, max abs "
-                   f"{float(np.abs(got[ok] - want[ok]).max()):.3g}")
+            bar = check_strict_f32(got, want, "strict f32")
         log(f"phase 6: strict route_stepped {dtype} n={n} nts={nts}, card vs "
             f"cpu: {bar}; sweeps card {card['strict_sweeps']} cpu "
             f"{cpu['strict_sweeps']}; launches {launched}; card "
@@ -1117,7 +1181,8 @@ def profile_window(fn) -> dict:
                 top=[(k, round(v / 1e3, 3)) for k, v in top])
 
 
-def phase_strict_main_path(device, dev: dict, ctx: dict) -> dict:
+def phase_strict_main_path(device, dev: dict, ctx: dict,
+                           baseline=None) -> dict:
     """bench.py:482-515 and benchmarks/bench_strict_skip.py on the port:
     12-step strict windows from phase 4's warm state, block skip off and
     on (accelerator "auto", on), and the plain Jacobi sweeps (accelerator
@@ -1220,8 +1285,10 @@ def phase_strict_main_path(device, dev: dict, ctx: dict) -> dict:
     ran = mcc.block_active_lanes(kw["active_rows"])
     b2_ms = cuda_ms(lambda: mcc.muskingum_cunge_cuda(*args, DT, **kw),
                     reps=20)
+    # the plain version's gate call was its warm-up
     p_ms = cuda_ms(lambda: solve_block_skip(*args, dt=DT, ran=ran,
-                                            prev=kw["prev"]))
+                                            prev=kw["prev"]),
+                   reps=1, warm_up=False)
     b1_ms = cuda_ms(lambda: mcc.muskingum_cunge_cuda(
         *args, DT, with_diagnostics=diag), reps=20)
     # B2's bound: the solved lanes' evaluations (B1's on the same inputs),
@@ -1236,15 +1303,355 @@ def phase_strict_main_path(device, dev: dict, ctx: dict) -> dict:
                                    + n_out * n_lanes
                                    + mcc.block_flags(ran).numel()),
                          st["lane_evals"])
+    base_ms = []
+    if baseline is not None:
+        # the baseline's B2 on the same sweep, in turns with this one
+        flags = mcc.block_flags(kw["active_rows"]).to(torch.int32)
+
+        def base():
+            return baseline.skip(args, diag, kw["prev"], flags)
+
+        def ours():
+            return mcc.muskingum_cunge_cuda(*args, DT, **kw)
+
+        if not all(torch.equal(g, w) for g, w in zip(base(), ours())):
+            raise AssertionError("captured skip sweep: baseline B2 and B2 "
+                                 "differ")
+        turns = [cuda_ms(f, reps=20) for f in (base, ours, ours, base)]
+        base_ms = [turns[0], turns[3]]
+        log(f"phase 7: the same sweep in turns (baseline B2, B2, B2, "
+            f"baseline B2): {' / '.join(f'{t:.4f}' for t in turns)} ms, bit "
+            f"for bit  [{smi}]")
+    # the slowest solved lane alone through B2: the floor that no
+    # scheduling of the sweep removes
+    i = int(torch.where(ran, trips, -1).argmax())
+    one = [a[i:i + 1].contiguous() for a in args]
+    one_kw = dict(with_diagnostics=diag,
+                  active_rows=torch.ones(1, dtype=torch.bool, device=device),
+                  prev=type(kw["prev"])(*[p[i:i + 1].contiguous()
+                                          for p in kw["prev"]]))
+    floor_ms = cuda_ms(lambda: mcc.muskingum_cunge_cuda(*one, DT, **one_kw),
+                       reps=20)
     log(f"phase 7: one skip sweep, {n_lanes} lanes f32, {blocks:.4f} of "
-        f"blocks active: B2 {b2_ms:.3f} ms, plain {p_ms:.3f} ms, B1 "
-        f"{b1_ms:.3f} ms; bit for bit (max abs {max_abs:.3g}); solved lanes' "
+        f"blocks active: B2 {b2_ms:.4f} ms, plain {p_ms:.3f} ms, B1 "
+        f"{b1_ms:.4f} ms; bit for bit (max abs {max_abs:.3g}); solved lanes' "
         f"trips mean {st['mean']:.4f} max {st['max']}, evaluations mean "
-        f"{st['evals_mean']:.4f}; bound "
-        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})  [{smi}]")
+        f"{st['evals_mean']:.4f} ({st['lane_evals']} in all); bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: bytes "
+        f"{bound['bytes_ms']:.4f}, issue {bound['issue_ms']:.4f}, MUFU "
+        f"{bound['mufu_ms']:.4f} ms); slowest solved lane alone "
+        f"{floor_ms:.4f} ms ({st['max']} trips, at {i / n_lanes:.3f} of the "
+        f"lane range, so claimed that far into the call)  [{smi}]")
     return dict(launches=launched, max_abs=max_abs, ms=b2_ms, plain_ms=p_ms,
+                b1_ms=b1_ms, active_blocks=blocks, floor_ms=floor_ms,
+                baseline_ms=base_ms,
                 trips_mean=st["mean"], trips_max=st["max"],
                 evals_mean=st["evals_mean"], **bound)
+
+
+
+def _cli_domain(base: Path, n: int, out_kinds: tuple) -> dict:
+    """A command-line case under ``base``: the synthetic CONUS network of
+    ``n`` flowpaths as a HYFeatures geopackage with about n // 500
+    level-pool lakes and n // 350 gages, four hourly NEXOUT CSV files (2 run sets of
+    24 steps at dt 300 s, qts 12) and ``cfg.yaml`` (short mode, lite
+    restart, CSV and, with "parquet" in ``out_kinds``, parquet output of
+    1,000 segments).  Returns the control file as a dict, the ids, the
+    channel parameters and the seconds it took."""
+    import yaml
+    from troute_torch import synthetic
+    t0 = time.perf_counter()
+    base.mkdir(parents=True)
+    (base / "forcing").mkdir()
+    ids, down = synthetic.synthetic_conus(
+        n, n_basins=max(synthetic.CONUS_BASINS * n // N_CONUS, 12))
+    rng = np.random.default_rng(1)
+    chan = synthetic.channel_params(n, rng)
+    inner = ids[np.isin(ids, down) & (down > 0)]
+    lake_segs = rng.choice(inner, n // 500, replace=False)
+    # a lake that drains straight into another lake has no outlet segment
+    lake_segs = lake_segs[~np.isin(down[lake_segs - 1], lake_segs)]
+    lakes = {int(n + 1 + k): (int(seg), [a, 12.0, 1.2, 0.1, 8.0, 0.4, 11.0,
+                                         12.0, 0.9])
+             for k, (seg, a) in enumerate(zip(
+                 lake_segs, rng.uniform(1.0, 3.0, lake_segs.size)))}
+    gage_segs = rng.choice(np.setdiff1d(ids, lake_segs), n // 350,
+                           replace=False)
+    gages = {int(seg): f"{k + 1:08d}" for k, seg in enumerate(gage_segs)}
+    synthetic.write_hyfeatures_geopackage(base / "domain.gpkg", ids, down,
+                                          chan, lakes, gages)
+    for k in range(4):
+        synthetic.write_nexout_csv(
+            base / "forcing" / f"20210823{13 + k}00NEXOUT.csv", ids,
+            rng.uniform(0.01, 0.2, n))
+    segments = [int(i) for i in rng.choice(ids, 1000, replace=False)]
+    out = {"csv_output": {"csv_output_folder": "out",
+                          "csv_output_segments": segments},
+           "lite_restart": {"lite_restart_output_directory": "restart"}}
+    if "parquet" in out_kinds:
+        out["parquet_output"] = {"parquet_output_folder": "out",
+                                 "parquet_output_segments": segments}
+    cfg = {
+        "log_parameters": {"showtiming": False, "log_level": "INFO"},
+        "network_topology_parameters": {
+            "supernetwork_parameters": {"geo_file_path": "domain.gpkg"},
+            "waterbody_parameters": {
+                "break_network_at_waterbodies": True,
+                "level_pool": {"level_pool_waterbody_parameter_file_path":
+                               "domain.gpkg"}}},
+        "compute_parameters": {
+            "compute_kernel": "auto", "assume_short_ts": True,
+            "restart_parameters": {"start_datetime": "2021-08-23_13:00"},
+            "forcing_parameters": {
+                "dt": DT, "qts_subdivisions": 12, "nts": 48,
+                "max_loop_size": 2, "nexus_input_folder": "forcing",
+                "qlat_input_folder": "forcing"},
+            "data_assimilation_parameters": {}},
+        "output_parameters": out}
+    with open(base / "cfg.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    return dict(cfg=cfg, ids=ids, chan=chan, lakes=lakes, gages=gages,
+                segments=segments, seconds=time.perf_counter() - t0)
+
+
+def _cli_run(base: Path, cfg: dict, name: str, *flags) -> dict:
+    """``main_v04`` on ``cfg`` written as ``base/name``; beside the result,
+    B1's and B2's launches of that run and the MC calls that the engine
+    itself counted in strict mode (``strict_mc_calls``, summed over the run
+    sets; zeros in short mode)."""
+    import yaml
+    from troute_torch import cli
+    from troute_torch.ops import muskingum_cuda as mcc
+    from troute_torch.routing import engine
+    with open(base / name, "w") as f:
+        yaml.safe_dump(cfg, f)
+    real, calls = engine.route_stepped, {"mc_secant": 0, "mc_secant_skip": 0}
+
+    def counted(*args, **kw):
+        out = real(*args, **kw)
+        for k, v in out.get("strict_mc_calls", {}).items():
+            calls[k] += v
+        return out
+
+    mcc.LAUNCHES = mcc.SKIP_LAUNCHES = 0
+    engine.route_stepped = counted
+    try:
+        res = cli.main_v04(["-f", str(base / name), *flags])
+    finally:
+        engine.route_stepped = real
+    res["launches"] = {"mc_secant": mcc.LAUNCHES,
+                       "mc_secant_skip": mcc.SKIP_LAUNCHES}
+    res["strict_mc_calls"] = calls
+    return res
+
+
+def _cli_strict(base: Path, case: dict, nts: int, *flags) -> dict:
+    """``case``'s control file with ``strict_iterative`` and
+    ``strict_block_skip`` on, ``nts`` steps in one run set from the 15:00
+    lite restart that the short run of ``case`` wrote, no output files.  On
+    the card, B1's and B2's launches must equal the engine's own MC calls
+    and B2 must have run."""
+    import copy
+    strict = copy.deepcopy(case["cfg"])
+    comp = strict["compute_parameters"]
+    comp.update(assume_short_ts=False, strict_iterative=True,
+                strict_block_skip=True)
+    comp["restart_parameters"] = {
+        "start_datetime": "2021-08-23_15:00",
+        "lite_channel_restart_file": "restart/channel_restart_202108231500",
+        "lite_waterbody_restart_file":
+            "restart/waterbody_restart_202108231500"}
+    comp["forcing_parameters"].update(nts=nts, max_loop_size=1)
+    strict["output_parameters"] = {}
+    res = _cli_run(base, strict, "strict.yaml", *flags)
+    n = case["ids"].size
+    if res["fvd"].shape != (nts, n, 3) or not np.isfinite(res["fvd"]).all():
+        raise AssertionError(f"phase 8 strict {flags}: fvd "
+                             f"{res['fvd'].shape} or not finite")
+    want = ({"mc_secant": 0, "mc_secant_skip": 0} if "--cpu" in flags
+            else res["strict_mc_calls"])
+    if res["launches"] != want or not res["strict_mc_calls"]["mc_secant_skip"]:
+        raise AssertionError(f"phase 8 strict {flags}: launched "
+                             f"{res['launches']}, the engine's MC calls "
+                             f"{res['strict_mc_calls']}")
+    return res
+
+
+def _cli_check_outputs(base: Path, case: dict, res: dict, what: str) -> None:
+    """Finite outputs of the expected shape; every written file exists;
+    the CSV and parquet subsets and the lite restarts read back as the
+    returned flows and state."""
+    import pandas as pd
+    from troute_torch.io.restart import read_lite_restart
+    fvd, n = res["fvd"], res["built"].n_nodes
+    if fvd.shape != (48, n, 3) or n != case["ids"].size \
+            or not np.isfinite(fvd).all():
+        raise AssertionError(f"{what}: fvd {fvd.shape}, finite "
+                             f"{bool(np.isfinite(fvd).all())}")
+    if not (fvd[-1, :, 0] > 0).mean() > 0.99:
+        raise AssertionError(f"{what}: flows did not reach the network")
+    names = sorted(p.name for p in res["written"])
+    want = sorted(["flowveldepth_202108231300.csv"]
+                  + ["troute_output_202108231300.parquet"]
+                  * ("parquet_output" in case["cfg"]["output_parameters"])
+                  + [f"{k}_restart_20210823{h}00"
+                     for k in ("channel", "waterbody") for h in (15, 17)])
+    if names != want or not all(p.exists() for p in res["written"]):
+        raise AssertionError(f"{what}: written {names}, expected {want}")
+    keep = np.isin(res["ids"], case["segments"])
+    sub = fvd[:, keep].transpose(1, 0, 2).reshape(int(keep.sum()), -1)
+    # pyarrow writes one header line, the pandas writer two
+    with_pyarrow = "parquet_output" in case["cfg"]["output_parameters"]
+    csv = pd.read_csv(base / "out" / "flowveldepth_202108231300.csv",
+                      index_col=0, header=0 if with_pyarrow else [0, 1])
+    if list(csv.index) != list(res["ids"][keep]) or not np.allclose(
+            csv.to_numpy(), sub, rtol=1e-6, atol=1e-9):
+        raise AssertionError(f"{what}: the CSV does not read back")
+    if "parquet_output" in case["cfg"]["output_parameters"]:
+        pq = pd.read_parquet(base / "out"
+                             / "troute_output_202108231300.parquet")
+        if list(pq.index) != list(res["ids"][keep]) \
+                or not np.array_equal(pq.to_numpy(), sub):
+            raise AssertionError(f"{what}: the parquet does not read back")
+    rows = res["built"].topo.reservoir_rows
+    for stamp, q, d in (("1500", fvd[23, :, 0], fvd[23, :, 2]),
+                        ("1700", res["final_state"][0],
+                         res["final_state"][1])):
+        ch = read_lite_restart(base / "restart"
+                               / f"channel_restart_20210823{stamp}")
+        wb = read_lite_restart(base / "restart"
+                               / f"waterbody_restart_20210823{stamp}")
+        if not (np.array_equal(ch.index, res["built"].topo.ids)
+                and np.array_equal(ch["qd0"].to_numpy(), q)
+                and np.array_equal(ch["h0"].to_numpy(), d)
+                and np.array_equal(wb["qd0"].to_numpy(), q[rows])):
+            raise AssertionError(f"{what}: restart {stamp} does not read "
+                                 "back as the routed state")
+    if rows.size != len(case["lakes"]) \
+            or res["built"].gage_rows.size != len(case["gages"]):
+        raise AssertionError(f"{what}: {rows.size} lakes, "
+                             f"{res['built'].gage_rows.size} gages")
+
+
+def phase_cli(dev: dict, n_full: int, n_small: int, n_strict: int) -> dict:
+    """The command line on the card (see the module docstring, phase 8)."""
+    import copy
+    import logging
+    import tempfile
+    smi = dev["smi"]
+    kinds = ("csv", "parquet") if dev["pyarrow"] else ("csv",)
+    stages = []
+
+    class Stages(logging.Handler):
+        def emit(self, record):
+            if "network stages" in record.getMessage():
+                stages.append(record.getMessage())
+
+    handler = Stages(level=logging.INFO)
+    blog = logging.getLogger("troute_torch.network.builder")
+    blog.addHandler(handler)
+    blog.setLevel(logging.INFO)
+    launches = {"mc_secant": 0, "mc_secant_skip": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the full-size command ----
+        base = Path(tmp) / "conus"
+        case = _cli_domain(base, n_full, kinds)
+        log(f"phase 8: wrote the {n_full}-flowpath case ({len(case['lakes'])} "
+            f"lakes, {len(case['gages'])} gages, geopackage "
+            f"{(base / 'domain.gpkg').stat().st_size / 1e6:.0f} MB, 4 NEXOUT "
+            f"files) in {case['seconds']:.1f} s; output {kinds}")
+        res = _cli_run(base, case["cfg"], "cfg.yaml")
+        _cli_check_outputs(base, case, res, "phase 8 full size")
+        if res["launches"] != {"mc_secant": 48, "mc_secant_skip": 0}:
+            raise AssertionError(f"phase 8: launches {res['launches']} for "
+                                 "48 short steps")
+        launches["mc_secant"] += res["launches"]["mc_secant"]
+        tt, seg = res["task_times"], n_full * 48
+        log(f"phase 8: python -m troute_torch -f cfg.yaml, N={n_full}, 2 run "
+            f"sets x 24 steps, f32, short mode: task_times "
+            f"{ {k: round(v, 3) for k, v in tt.items()} }; "
+            f"{stages[-1] if stages else ''}; route part "
+            f"{seg / tt['route_time']:.4e} seg-ts/s, whole command "
+            f"{seg / tt['total_time']:.4e} seg-ts/s; B1 launches 48 = steps; "
+            f"outputs finite, CSV{' and parquet' * dev['pyarrow']} subsets "
+            f"and lite restarts read back  [{smi}]")
+        full = dict(task_times=dict(tt), stages=stages[-1] if stages else "",
+                    route_seg_ts_s=seg / tt["route_time"],
+                    command_seg_ts_s=seg / tt["total_time"],
+                    case_seconds=case["seconds"])
+        del res
+
+        # ---- the same control file at n_small: card against --cpu ----
+        base = Path(tmp) / "small"
+        case = _cli_domain(base, n_small, kinds)
+        card = _cli_run(base, case["cfg"], "cfg.yaml")
+        _cli_check_outputs(base, case, card, "phase 8 small, card")
+        launches["mc_secant"] += card["launches"]["mc_secant"]
+        cpu = _cli_run(base, case["cfg"], "cfg.yaml", "--cpu")
+        if cpu["launches"] != {"mc_secant": 0, "mc_secant_skip": 0}:
+            raise AssertionError("phase 8: --cpu launched a kernel")
+        got = np.concatenate([card["fvd"].ravel(),
+                              *[a.ravel() for a in card["final_state"]]])
+        want = np.concatenate([cpu["fvd"].ravel(),
+                               *[a.ravel() for a in cpu["final_state"]]])
+        st = check_f32_bar(got, want, "phase 8 card vs --cpu", max_share=1e-5)
+        log(f"phase 8: N={n_small}, the same control file on the card and "
+            f"with --cpu: f32 bar: median {st['median']:.3g}, p95 "
+            f"{st['p95']:.3g}, max {st['max']:.3g}, {st['over_5e_2']} of "
+            f"{got.size} values past 5e-2; card task_times "
+            f"{ {k: round(v, 3) for k, v in card['task_times'].items()} }, "
+            f"--cpu route {cpu['task_times']['route_time']:.2f} s")
+        # one run set of 48 steps against two of 24: the second set is
+        # warm from the first, so the flows agree to the f32 bar (a cold
+        # second set would start from zero flow).  Not bit for bit on the
+        # card: the upstream sum's remainder edges go through index_add,
+        # whose atomics add in an order that changes from run to run
+        one = copy.deepcopy(case["cfg"])
+        one["compute_parameters"]["forcing_parameters"]["max_loop_size"] = 4
+        one["output_parameters"] = {}
+        single = _cli_run(base, one, "one_set.yaml")
+        launches["mc_secant"] += single["launches"]["mc_secant"]
+        warm = check_f32_bar(card["fvd"].ravel(), single["fvd"].ravel(),
+                             "phase 8 two run sets vs one", max_share=1e-5)
+        same_bits = float((card["fvd"] == single["fvd"]).mean())
+        # strict mode with the block skip, from the state after run set 1
+        sres = _cli_strict(base, case, 12)
+        for k in launches:
+            launches[k] += sres["launches"][k]
+        log(f"phase 8: two run sets against one of 48 steps (warm hand-off): "
+            f"f32 bar, max rel {warm['max']:.3g}, {same_bits:.6f} of the "
+            f"values the same bits; strict_iterative with strict_block_skip "
+            f"under the command line, N={n_small}, 12 steps from the 15:00 "
+            f"restart: launches {sres['launches']} = the engine's MC calls, "
+            f"outputs finite, route {sres['task_times']['route_time']:.2f} s"
+            f"  [{smi}]")
+        del card, cpu, single
+
+        # ---- strict under the command line, card against --cpu, at
+        # n_strict (on the CPU every sweep solves every lane) ----
+        base = Path(tmp) / "strict"
+        case = _cli_domain(base, n_strict, kinds)
+        short = _cli_run(base, case["cfg"], "cfg.yaml")
+        _cli_check_outputs(base, case, short, "phase 8 strict domain, short")
+        launches["mc_secant"] += short["launches"]["mc_secant"]
+        s_card = _cli_strict(base, case, 6)
+        for k in launches:
+            launches[k] += s_card["launches"][k]
+        s_cpu = _cli_strict(base, case, 6, "--cpu")
+        got = np.concatenate([s_card["fvd"].ravel(),
+                              *[a.ravel() for a in s_card["final_state"]]])
+        want = np.concatenate([s_cpu["fvd"].ravel(),
+                               *[a.ravel() for a in s_cpu["final_state"]]])
+        bar = check_strict_f32(got, want, "phase 8 strict card vs --cpu")
+        log(f"phase 8: N={n_strict}, strict_iterative with strict_block_skip "
+            f"under the command line, 6 steps from the 15:00 restart, on the "
+            f"card and with --cpu: {bar}; launches {s_card['launches']} = "
+            f"the engine's MC calls (--cpu: {s_cpu['strict_mc_calls']} calls, "
+            f"no launch); route card "
+            f"{s_card['task_times']['route_time']:.2f} s, --cpu "
+            f"{s_cpu['task_times']['route_time']:.2f} s  [{smi}]")
+    blog.removeHandler(handler)
+    return dict(launches=launches, strict_launches=sres["launches"], **full)
 
 
 def foreign_modules() -> list[str]:
@@ -1258,8 +1665,8 @@ def foreign_modules() -> list[str]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="checkout whose B1 (one thread per lane) is timed "
-                         "in turns with this one")
+                    help="earlier checkout whose B1 and B2 are timed in "
+                         "turns with this one's")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1274,7 +1681,7 @@ def main() -> int:
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
     dev = phase_device(device)
-    baseline = None if opts.baseline is None else BaselineB1(
+    baseline = None if opts.baseline is None else Baseline(
         opts.baseline / "troute_torch" / "csrc" / "mc_secant.cu")
     r = phase_kernel_vs_plain(device, dev, n32=N_CONUS, n64=1_000_000,
                               baseline=baseline)
@@ -1282,9 +1689,11 @@ def main() -> int:
     m = phase_main_path(device, dev, n=N_CONUS, nts=24, baseline=baseline)
     phase_skip_vs_plain(device, n32=N_CONUS, n64=1_000_000)
     phase_strict_card_vs_cpu(device, n=50_000, nts=6)
-    s = phase_strict_main_path(device, dev, m["setup"])
+    s = phase_strict_main_path(device, dev, m["setup"], baseline=baseline)
+    del m["setup"]
+    torch.cuda.empty_cache()
+    c = phase_cli(dev, n_full=N_CONUS, n_small=100_000, n_strict=25_000)
     if opts.baseline is not None:
-        del m["setup"]
         main_path_turns(opts.baseline, n=N_CONUS, nts=24, smi=dev["smi"])
     if foreign_modules():
         raise AssertionError(f"the port's run imported {foreign_modules()}")
@@ -1296,7 +1705,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "mc_secant", "route": "cuda", "source": src,
          "replaces": "troute_tpu/ops/muskingum_pallas.py:42",
-         "launches": m["launches"] + s["launches"]["mc_secant"],
+         "launches": m["launches"] + s["launches"]["mc_secant"]
+         + c["launches"]["mc_secant"],
+         "launches_by_path": {"phase 4": m["launches"],
+                              "phase 7": s["launches"]["mc_secant"],
+                              "phase 8": c["launches"]["mc_secant"]},
          "max_abs_err": max(m["max_abs"], r["max_abs"]),
          **{k: m[k] for k in keys}, "library_ms": None,
          "floor_ms": m["floor_ms"], "baseline_ms": m["baseline_ms"],
@@ -1304,9 +1717,18 @@ def main() -> int:
                                                    "baseline_ms")}},
         {"name": "mc_secant_skip", "route": "cuda", "source": src,
          "replaces": "troute_tpu/ops/muskingum_pallas.py:51",
-         "launches": s["launches"]["mc_secant_skip"],
+         "launches": m["skip_launches"] + s["launches"]["mc_secant_skip"]
+         + c["launches"]["mc_secant_skip"],
+         "launches_by_path": {"phase 4": m["skip_launches"],
+                              "phase 7": s["launches"]["mc_secant_skip"],
+                              "phase 8": c["launches"]["mc_secant_skip"]},
          "max_abs_err": s["max_abs"], **{k: s[k] for k in keys},
-         "library_ms": None}]}))
+         "library_ms": None, "floor_ms": s["floor_ms"],
+         "baseline_ms": s["baseline_ms"],
+         "b1_ms_same_inputs": s["b1_ms"],
+         "active_blocks": s["active_blocks"]}],
+        "cli": {k: c[k] for k in ("task_times", "route_seg_ts_s",
+                                  "command_seg_ts_s", "stages")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -230,6 +230,66 @@ def test_skip_kernel_matches_plain_on_card(cuda, dtype, diagnostics):
         assert not bool(g.any())
 
 
+def _skip_pattern(name, n, device):
+    """Per-lane activity for one named pattern of B2's flag blocks."""
+    lane = torch.arange(n, device=device)
+    block = lane // muskingum_cuda.SKIP_BLOCK
+    if name == "all":
+        return torch.ones(n, dtype=torch.bool, device=device)
+    if name == "none":
+        return torch.zeros(n, dtype=torch.bool, device=device)
+    if name == "alternating":
+        return block % 2 == 0
+    if name == "random":
+        rng = np.random.default_rng(11)
+        return torch.as_tensor(rng.random(n) < 0.004, device=device)
+    if name == "last_partial":    # only the last, partial block solves
+        return lane == n - 1
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pattern", ["all", "none", "alternating", "random",
+                                     "last_partial"])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 257, 100_003])
+def test_b2_persistent_matches_plain_on_card(cuda, dtype, pattern, n):
+    """The persistent B2 against ``solve_block_skip`` on the card, for each
+    activity pattern and lane count (claims whose tail passes ``nseg``,
+    flag blocks that are partial): f32 bit for bit, f64 rtol 1e-9; solved
+    lanes equal B1, skipped lanes ``prev``, exactly; trips and evaluations
+    equal B1's on solved lanes and 0 elsewhere; two calls identical.  The
+    wrapper allocates the outputs, so ``prev`` never overlaps them (the
+    strict engine hands the previous call's outputs over and keeps them)."""
+    args = [a[:n].contiguous() for a in _conus_range(100_003, dtype, cuda)]
+    full, f_trips, f_evals = muskingum_cuda.muskingum_cunge_cuda(
+        *args, DT, return_trips=True)
+    prev = MCOutput(*[o + 7.0 + k for k, o in enumerate(full)])
+    active = _skip_pattern(pattern, n, cuda)
+    ran = muskingum_cuda.block_active_lanes(active)
+    before = muskingum_cuda.SKIP_LAUNCHES
+    got, trips, evals = muskingum_cuda.muskingum_cunge_cuda(
+        *args, DT, active_rows=active, prev=prev, return_trips=True)
+    again, trips2, evals2 = muskingum_cuda.muskingum_cunge_cuda(
+        *args, DT, active_rows=active, prev=prev, return_trips=True)
+    torch.cuda.synchronize()
+    assert muskingum_cuda.SKIP_LAUNCHES == before + (2 if n else 0)
+    assert all(p.data_ptr() != g.data_ptr() for p, g in zip(prev, got) if n)
+    want = solve_block_skip(*args, dt=DT, ran=ran, prev=prev,
+                            return_trips=True)
+    assert torch.equal(trips, torch.where(ran, f_trips, 0))
+    assert torch.equal(evals, torch.where(ran, f_evals, 0))
+    assert torch.equal(trips, trips2) and torch.equal(evals, evals2)
+    assert torch.equal(trips, want[6]) and torch.equal(evals, want[7])
+    for g, a, w, f, p in zip(got, again, want[:6], full, prev):
+        assert torch.equal(g, a)
+        if dtype == torch.float32:
+            assert torch.equal(g, w)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=1e-9, atol=1e-12)
+        assert torch.equal(g[ran], f[ran]) and torch.equal(g[~ran], p[~ran])
+
+
 def _strict_case(n, seed):
     ids, down = bench.synthetic_conus(n=n, n_basins=50)
     rng = np.random.default_rng(seed)

@@ -66,11 +66,27 @@ def test_no_file_of_the_port_imports_jax():
 
 _PROBE_ALL = """
 import importlib, pkgutil, sys
+sys.modules["h5py"] = None      # hidden: any ``import h5py`` now raises
 import numpy as np
 import torch
 import troute_torch
-for m in pkgutil.walk_packages(troute_torch.__path__, "troute_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(troute_torch.__path__,
+                                               "troute_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("cli", "__main__", "config.schema", "io.netcdf", "io.output",
+             "io.restart", "io.forcing", "io.routelink", "io.timeslice",
+             "io.rfc", "network.builder", "network.graph",
+             "network.hyfeatures", "network.gl_constants",
+             "network.rfc_crosswalk", "da_assembly", "parity"):
+    assert "troute_torch." + name in names, name
+from troute_torch.io.netcdf import NetCDFFile
+try:
+    NetCDFFile("absent.nc")
+except ImportError as e:
+    assert "h5py" in str(e), e
+else:
+    raise AssertionError("a NetCDF read without h5py did not raise")
 import chip_smoke
 """ + _PROBE.split("import troute_torch", 1)[1].replace(
     'print("jax" in sys.modules, any(m.startswith("jax.") for m in sys.modules))',
@@ -79,8 +95,10 @@ import chip_smoke
 
 def test_port_imports_nothing_of_the_jax_package():
     """Every module of the port, and chip_smoke.py, imported in a fresh
-    process that then routes a tiny network on the CPU: no module of JAX,
-    of ``troute_tpu`` or ``bench`` is loaded."""
+    process from which ``h5py`` is hidden, and which then routes a tiny
+    network on the CPU: every module imports without ``h5py`` (a NetCDF
+    read then raises an ``ImportError`` that names it), and no module of
+    JAX, of ``troute_tpu`` or ``bench`` is loaded."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_ENABLE_X64", "XLA_FLAGS")}
     env["PYTHONPATH"] = str(REPO)

@@ -85,10 +85,16 @@ def test_wrapper_returns_trips_on_cpu():
         *args, DT, with_diagnostics=False, return_trips=True)
     assert torch.equal(trips3, want[6]) and torch.equal(evals3, want[7])
     assert not bool(out3.X.any())
-    with pytest.raises(ValueError):
-        muskingum_cuda.muskingum_cunge_cuda(
-            *args, DT, active_rows=torch.ones(1000, dtype=torch.bool),
-            prev=out, return_trips=True)
+    # the block-skip form reports the same counts on the lanes it solves
+    # and 0 on the lanes it passes through
+    active = torch.zeros(1000, dtype=torch.bool)
+    active[300] = True
+    ran = muskingum_cuda.block_active_lanes(active)
+    assert 0 < int(ran.sum()) < 1000
+    _, trips_s, evals_s = muskingum_cuda.muskingum_cunge_cuda(
+        *args, DT, active_rows=active, prev=out, return_trips=True)
+    assert torch.equal(trips_s, torch.where(ran, want[6], 0))
+    assert torch.equal(evals_s, torch.where(ran, want[7], 0))
     np.testing.assert_array_equal(
         muskingum_cuda.muskingum_cunge_cuda(*args, DT).qdc.numpy(),
         want[0].numpy())

@@ -48,13 +48,24 @@
 // the same Pallas file (launched by `_mc_pallas_padded_skip`), the
 // active-set form used by strict fixed-point sweeps: a block whose int32
 // activity flag is 0 copies the previous call's outputs through instead of
-// solving.  Here a flag covers one CUDA block of kThreads (256) lanes, one
-// thread per lane, so the branch is uniform per block; an active block
-// runs the same `init_lane`, `trip` and `finish_lane` as B1, so the two
-// kernels cannot drift apart.  `prev` comes in the order of the outputs
-// (qdc, velc, depthc, ck, cn, x); the TPU wrapper hands it over with ck
-// and cn swapped (muskingum_pallas.py:172-173), which the port does not
-// copy.
+// solving.  A flag covers kSkipBlock (256) consecutive lanes.  What bounds
+// it: a skipped lane moves 3 (6) values in and as many out, 24 to 96
+// bytes and no arithmetic; a solved lane costs what it costs in B1.  One
+// thread per lane and one CUDA block per flag (the first design) lost the
+// skip's gain twice: a solved block held its SM slot until its slowest
+// lane ended, and skipped and solved blocks were scheduled in index order
+// with no balance between SMs.  So B2 is B1's persistent grid
+// (`persistent_solve`, one loop for both kernels) with the flag read at
+// claim time: a claim is 32 aligned lanes, which lie inside one flag
+// block, so the test is uniform across the warp.  A claim in an inactive
+// block is copied through at once by the whole warp (thread l copies lane
+// base + l of each `prev` array, one 128-byte line per array in f32,
+// whatever segments its threads still hold) and the warp claims again; a
+// claim in an active block refills idle lanes exactly as in B1.  `prev`
+// and the outputs must not overlap (the wrapper allocates the outputs).
+// `prev` comes in the order of the outputs (qdc, velc, depthc, ck, cn, x);
+// the TPU wrapper hands it over with ck and cn swapped
+// (muskingum_pallas.py:172-173), which the port does not copy.
 //
 // C interface (loaded with ctypes): mc_secant_f32 / mc_secant_f64 take the
 // 13 input pointers, dt, the 6 output pointers (ck, cn, x may be null to
@@ -65,7 +76,9 @@
 // that stream and return cudaGetLastError().
 // mc_secant_skip_f32 / _f64 take, after the outputs, the 6 `prev` pointers
 // (the last 3 null with the outputs') and the [ceil(nseg / 256)] int32
-// flags.  Built with -DMC_SECANT_PROBES, the file also holds two probe
+// flags, then the same two counts (0 expected on skipped lanes: the kernel
+// does not write them), the work counter, the lane count and the stream.
+// Built with -DMC_SECANT_PROBES, the file also holds two probe
 // kernels whose SASS differ by one residual evaluation (for counting its
 // instructions).
 
@@ -101,10 +114,14 @@ template <typename T> __device__ __forceinline__ T mn(T a, T b) { return a < b ?
 
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-// idle lanes of a B1 warp that start a refill
+// idle lanes of a warp that start a refill
 constexpr int kRefillMin = 28;
+// lanes per activity flag of B2: a multiple of kWarp, so that a claim of
+// kWarp aligned lanes lies inside one flag block
+constexpr int kSkipBlock = 256;
+static_assert(kSkipBlock % kWarp == 0, "a claim must not straddle two flags");
 
-// blocks of kThreads a B1 SM must hold at once: f32 at <= 64 registers
+// blocks of kThreads an SM must hold at once: f32 at <= 64 registers
 // (50% occupancy), f64 at <= 128
 template <typename T> struct Occupancy;
 template <> struct Occupancy<float> { static constexpr int kMinBlocks = 4; };
@@ -414,16 +431,36 @@ __device__ __forceinline__ void finish_lane(const State<T>& s, const Outputs<T>&
   out.x[i] = s.has_flow ? c.x : T(0.0);
 }
 
-// B1: a persistent grid whose lanes refill from a work counter (see the
-// note at the top).  `next` holds 0 at launch; nseg < 2^31 - 2^24.  A
-// lane whose loop has ended keeps its state until the warp refills, which
-// it does once at least kRefillMin of its lanes are idle (or all are):
-// the stores of the finished lanes and the loads of the new ones then run
-// together, once per refill and not once per lane.
+// lane i of a skipped block: the previous call's outputs, unchanged
 template <typename T>
-__global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
-mc_secant_kernel(Inputs<T> in, T dt, Outputs<T> out, int32_t* __restrict__ next,
-                 int32_t nseg) {
+__device__ __forceinline__ void copy_through(const Prev<T>& prev, const Outputs<T>& out,
+                                             int64_t i) {
+  out.qdc[i] = prev.qdc[i];
+  out.velc[i] = prev.velc[i];
+  out.depthc[i] = prev.depthc[i];
+  if (out.ck == nullptr) return;
+  out.ck[i] = prev.ck[i];
+  out.cn[i] = prev.cn[i];
+  out.x[i] = prev.x[i];
+}
+
+// The loop of B1 and B2: a persistent grid whose lanes refill from a work
+// counter (see the note at the top).  `next` holds 0 at launch; nseg <
+// 2^31 - 2^24.  A lane whose loop has ended keeps its state until the warp
+// refills, which it does once at least kRefillMin of its lanes are idle
+// (or all are): the stores of the finished lanes and the loads of the new
+// ones then run together, once per refill and not once per lane.  With
+// kSkip, a claim whose flag `active[base / kSkipBlock]` is 0 is copied
+// through from `prev` by the whole warp and never enters the state
+// machine; the warp then claims again, so a warp that meets only such
+// claims still reaches the exit test once the counter is past nseg.
+template <typename T, bool kSkip>
+__device__ __forceinline__ void persistent_solve(const Inputs<T>& in, T dt,
+                                                 const Outputs<T>& out,
+                                                 const Prev<T>& prev,
+                                                 const int32_t* __restrict__ active,
+                                                 int32_t* __restrict__ next,
+                                                 int32_t nseg) {
   const int lane = threadIdx.x % kWarp;
   const unsigned below = (1u << lane) - 1u;
   State<T> s;
@@ -451,6 +488,13 @@ mc_secant_kernel(Inputs<T> in, T dt, Outputs<T> out, int32_t* __restrict__ next,
             open = false;
             break;
           }
+          if (kSkip && active[base / kSkipBlock] == 0) {
+            // the claim's tail past nseg, when nseg is no multiple of
+            // kWarp, is left alone
+            const int32_t j = base + lane;
+            if (j < nseg) copy_through(prev, out, static_cast<int64_t>(j));
+            continue;
+          }
           w_next = base;
           w_end = min(base + kWarp, nseg);
         }
@@ -473,28 +517,22 @@ mc_secant_kernel(Inputs<T> in, T dt, Outputs<T> out, int32_t* __restrict__ next,
   }
 }
 
-// B2: block b solves its lanes when active[b] != 0, one thread per lane,
-// else copies its lanes of `prev` (same order as the outputs) through.
-// One flag per CUDA block, so the branch is uniform across the block.
+// B1: every lane is solved
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
+mc_secant_kernel(Inputs<T> in, T dt, Outputs<T> out, int32_t* __restrict__ next,
+                 int32_t nseg) {
+  persistent_solve<T, false>(in, dt, out, Prev<T>{}, nullptr, next, nseg);
+}
+
+// B2: flag block b (kSkipBlock lanes) is solved when active[b] != 0, else
+// its lanes of `prev` are copied through
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
 mc_secant_skip_kernel(Inputs<T> in, T dt, Outputs<T> out, Prev<T> prev,
-                      const int32_t* __restrict__ active, int64_t nseg) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= nseg) return;
-  if (active[blockIdx.x] != 0) {
-    State<T> s = init_lane(in, dt, i);
-    while (s.active) trip(s);
-    finish_lane(s, out, i);
-    return;
-  }
-  out.qdc[i] = prev.qdc[i];
-  out.velc[i] = prev.velc[i];
-  out.depthc[i] = prev.depthc[i];
-  if (out.ck == nullptr) return;
-  out.ck[i] = prev.ck[i];
-  out.cn[i] = prev.cn[i];
-  out.x[i] = prev.x[i];
+                      const int32_t* __restrict__ active,
+                      int32_t* __restrict__ next, int32_t nseg) {
+  persistent_solve<T, true>(in, dt, out, prev, active, next, nseg);
 }
 
 #ifdef MC_SECANT_PROBES
@@ -518,9 +556,9 @@ __global__ void probe_eval1(const State<T>* in, State<T>* out) {
 
 #endif
 
-// resident blocks of B1 on the current device: occupancy x SMs, queried
-// once per device and dtype
-template <typename T>
+// resident blocks of B1 (kSkip false) or B2 on the current device:
+// occupancy x SMs, queried once per device, dtype and kernel
+template <typename T, bool kSkip>
 int resident_blocks(int* err) {
   constexpr int kMaxDevices = 64;
   static int cache[kMaxDevices] = {0};
@@ -529,8 +567,13 @@ int resident_blocks(int* err) {
   if (*err != 0) return 0;
   if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
   int per_sm = 0, sms = 0;
-  *err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mc_secant_kernel<T>, kThreads, 0));
+  if (kSkip) {
+    *err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mc_secant_skip_kernel<T>, kThreads, 0));
+  } else {
+    *err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mc_secant_kernel<T>, kThreads, 0));
+  }
   if (*err == 0)
     *err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   if (*err != 0) return 0;
@@ -539,42 +582,27 @@ int resident_blocks(int* err) {
   return blocks;
 }
 
+// B1 when `active` is null, else B2 with `prev` and the flags
 template <typename T>
-int launch(const T* qup, const T* quc, const T* qdp, const T* ql, const T* dx,
-           const T* bw, const T* tw, const T* twcc, const T* n, const T* ncc,
-           const T* cs, const T* s0, const T* depthp, T dt, T* qdc, T* velc,
-           T* depthc, T* ck, T* cn, T* x, int32_t* trips, int32_t* evals, int32_t* next,
-           int64_t nseg, void* stream) {
+int launch(const Inputs<T>& in, T dt, const Outputs<T>& out, const Prev<T>& prev,
+           const int32_t* active, int32_t* next, int64_t nseg, void* stream) {
   // the counter runs past nseg by at most 32 per warp of the grid
   if (nseg < 0 || nseg > (int64_t{1} << 31) - (int64_t{1} << 24))
     return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
-  const int resident = resident_blocks<T>(&err);
+  const int resident = active == nullptr ? resident_blocks<T, false>(&err)
+                                         : resident_blocks<T, true>(&err);
   if (err != 0) return err;
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  Inputs<T> in = {qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp};
-  Outputs<T> out = {qdc, velc, depthc, ck, cn, x, trips, evals};
   const int64_t needed = (nseg + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(needed < resident ? needed : resident);
-  mc_secant_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, dt, out, next, static_cast<int32_t>(nseg));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_skip(const T* qup, const T* quc, const T* qdp, const T* ql, const T* dx,
-                const T* bw, const T* tw, const T* twcc, const T* n, const T* ncc,
-                const T* cs, const T* s0, const T* depthp, T dt, T* qdc, T* velc,
-                T* depthc, T* ck, T* cn, T* x, const T* p_qdc, const T* p_velc,
-                const T* p_depthc, const T* p_ck, const T* p_cn, const T* p_x,
-                const int32_t* active, int64_t nseg, void* stream) {
-  Inputs<T> in = {qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp};
-  Outputs<T> out = {qdc, velc, depthc, ck, cn, x, nullptr, nullptr};
-  Prev<T> prev = {p_qdc, p_velc, p_depthc, p_ck, p_cn, p_x};
-  const int64_t blocks = (nseg + kThreads - 1) / kThreads;
-  mc_secant_skip_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(in, dt, out, prev,
-                                                                  active, nseg);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t n = static_cast<int32_t>(nseg);
+  if (active == nullptr) {
+    mc_secant_kernel<T><<<blocks, kThreads, 0, st>>>(in, dt, out, next, n);
+  } else {
+    mc_secant_skip_kernel<T><<<blocks, kThreads, 0, st>>>(in, dt, out, prev, active, next, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,57 +610,44 @@ int launch_skip(const T* qup, const T* quc, const T* qdp, const T* ql, const T* 
 
 extern "C" {
 
-int mc_secant_f32(const float* qup, const float* quc, const float* qdp, const float* ql,
-                  const float* dx, const float* bw, const float* tw, const float* twcc,
-                  const float* n, const float* ncc, const float* cs, const float* s0,
-                  const float* depthp, float dt, float* qdc, float* velc, float* depthc,
-                  float* ck, float* cn, float* x, int32_t* trips, int32_t* evals,
-                  int32_t* next, int64_t nseg, void* stream) {
-  return launch<float>(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp, dt,
-                       qdc, velc, depthc, ck, cn, x, trips, evals, next, nseg, stream);
-}
+#define MC_INPUT_PARAMS(T)                                                        \
+  const T *qup, const T *quc, const T *qdp, const T *ql, const T *dx, const T *bw, \
+      const T *tw, const T *twcc, const T *n, const T *ncc, const T *cs,           \
+      const T *s0, const T *depthp, T dt, T *qdc, T *velc, T *depthc, T *ck,       \
+      T *cn, T *x
+#define MC_INPUTS(T) \
+  Inputs<T> { qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp }
+#define MC_OUTPUTS(T) \
+  Outputs<T> { qdc, velc, depthc, ck, cn, x, trips, evals }
 
-int mc_secant_f64(const double* qup, const double* quc, const double* qdp, const double* ql,
-                  const double* dx, const double* bw, const double* tw, const double* twcc,
-                  const double* n, const double* ncc, const double* cs, const double* s0,
-                  const double* depthp, double dt, double* qdc, double* velc,
-                  double* depthc, double* ck, double* cn, double* x, int32_t* trips,
-                  int32_t* evals, int32_t* next, int64_t nseg, void* stream) {
-  return launch<double>(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp, dt,
-                        qdc, velc, depthc, ck, cn, x, trips, evals, next, nseg, stream);
-}
+#define MC_SECANT_ENTRY(NAME, T)                                                  \
+  int NAME(MC_INPUT_PARAMS(T), int32_t* trips, int32_t* evals, int32_t* next,     \
+           int64_t nseg, void* stream) {                                          \
+    return launch<T>(MC_INPUTS(T), dt, MC_OUTPUTS(T), Prev<T>{}, nullptr, next,   \
+                     nseg, stream);                                               \
+  }
+
+// a null `active` would select B1, so it is refused here
+#define MC_SECANT_SKIP_ENTRY(NAME, T)                                             \
+  int NAME(MC_INPUT_PARAMS(T), const T* p_qdc, const T* p_velc, const T* p_depthc, \
+           const T* p_ck, const T* p_cn, const T* p_x, const int32_t* active,     \
+           int32_t* trips, int32_t* evals, int32_t* next, int64_t nseg,           \
+           void* stream) {                                                        \
+    if (active == nullptr) return static_cast<int>(cudaErrorInvalidValue);        \
+    return launch<T>(MC_INPUTS(T), dt, MC_OUTPUTS(T),                             \
+                     Prev<T>{p_qdc, p_velc, p_depthc, p_ck, p_cn, p_x}, active,   \
+                     next, nseg, stream);                                         \
+  }
+
+MC_SECANT_ENTRY(mc_secant_f32, float)
+MC_SECANT_ENTRY(mc_secant_f64, double)
+MC_SECANT_SKIP_ENTRY(mc_secant_skip_f32, float)
+MC_SECANT_SKIP_ENTRY(mc_secant_skip_f64, double)
 
 #ifdef MC_SECANT_PROBES
 // taking their addresses keeps the probe kernels in the library
 const void* mc_secant_probes[2] = {reinterpret_cast<const void*>(probe_eval0<float>),
                                    reinterpret_cast<const void*>(probe_eval1<float>)};
 #endif
-
-int mc_secant_skip_f32(const float* qup, const float* quc, const float* qdp, const float* ql,
-                       const float* dx, const float* bw, const float* tw, const float* twcc,
-                       const float* n, const float* ncc, const float* cs, const float* s0,
-                       const float* depthp, float dt, float* qdc, float* velc, float* depthc,
-                       float* ck, float* cn, float* x, const float* p_qdc,
-                       const float* p_velc, const float* p_depthc, const float* p_ck,
-                       const float* p_cn, const float* p_x, const int32_t* active,
-                       int64_t nseg, void* stream) {
-  return launch_skip<float>(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp, dt,
-                            qdc, velc, depthc, ck, cn, x, p_qdc, p_velc, p_depthc, p_ck,
-                            p_cn, p_x, active, nseg, stream);
-}
-
-int mc_secant_skip_f64(const double* qup, const double* quc, const double* qdp,
-                       const double* ql, const double* dx, const double* bw, const double* tw,
-                       const double* twcc, const double* n, const double* ncc,
-                       const double* cs, const double* s0, const double* depthp, double dt,
-                       double* qdc, double* velc, double* depthc, double* ck, double* cn,
-                       double* x, const double* p_qdc, const double* p_velc,
-                       const double* p_depthc, const double* p_ck, const double* p_cn,
-                       const double* p_x, const int32_t* active, int64_t nseg,
-                       void* stream) {
-  return launch_skip<double>(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp,
-                             dt, qdc, velc, depthc, ck, cn, x, p_qdc, p_velc, p_depthc,
-                             p_ck, p_cn, p_x, active, nseg, stream);
-}
 
 }  // extern "C"

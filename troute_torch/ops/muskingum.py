@@ -312,7 +312,7 @@ def solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
 
 
 def solve_block_skip(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
-                     depthp, dt, ran, prev):
+                     depthp, dt, ran, prev, return_trips: bool = False):
     """``solve_block`` on every lane, then ``prev`` wherever ``ran`` is
     False: the plain version of the block-skip kernel.
 
@@ -321,7 +321,12 @@ def solve_block_skip(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     outputs in the order of the outputs.  Per-lane results of
     ``solve_block`` do not depend on the batch, so this agrees lane for
     lane with a kernel that solves only the active blocks.
+    ``return_trips`` appends ``solve_block``'s two per-lane counts, 0 where
+    ``ran`` is False.
     """
     solved = solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
-                         depthp, dt)
-    return tuple(torch.where(ran, s, p) for s, p in zip(solved, prev))
+                         depthp, dt, return_trips=return_trips)
+    out = tuple(torch.where(ran, s, p) for s, p in zip(solved[:6], prev))
+    if return_trips:
+        out += tuple(torch.where(ran, c, 0) for c in solved[6:])
+    return out

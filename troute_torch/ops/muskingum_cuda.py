@@ -13,10 +13,13 @@ lane with the plain versions in ``ops/muskingum.py``:
   ``return_trips`` it also returns each lane's secant trips and residual
   evaluations (int32), as ``solve_block(..., return_trips=True)`` does.
 * B2 (``mc_secant_skip``), the block-skip form of strict fixed-point
-  sweeps, one thread per lane, takes per-lane ``active_rows`` and a
-  previous call's outputs ``prev``; a block of ``SKIP_BLOCK`` lanes none
-  of whose lanes is active copies ``prev`` through instead of solving.
-  Plain version ``solve_block_skip``.  ``prev`` is read in the order of
+  sweeps, takes per-lane ``active_rows`` and a previous call's outputs
+  ``prev``; a block of ``SKIP_BLOCK`` lanes none of whose lanes is active
+  copies ``prev`` through instead of solving.  It runs B1's persistent
+  grid and reads a block's flag when a warp claims 32 of its lanes: a
+  skipped claim is copied at once, a solved one refills the warp's idle
+  lanes as in B1.  Plain version ``solve_block_skip``; ``return_trips``
+  gives 0 on skipped lanes.  ``prev`` is read in the order of
   the outputs, (qdc, velc, depthc, ck, cn, X); the TPU wrapper reads it
   with ck and cn swapped (``muskingum_pallas.py:172-173``), which the
   port does not copy.
@@ -25,8 +28,8 @@ For CPU tensors the wrapper runs the plain version.  For CUDA tensors it
 launches the kernel or raises; nothing falls back.  The TPU wrapper's
 ``block_sublanes`` has no counterpart here: no solved value depends on the
 launch geometry, so the kernels fix it (256 threads per block), and the
-skip granularity is the CUDA block.  So skip patterns differ from the TPU
-wrapper's 2048-lane blocks.
+skip granularity is ``SKIP_BLOCK`` lanes.  So skip patterns differ from
+the TPU wrapper's 2048-lane blocks.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from troute_torch.ops import muskingum as mc
 LAUNCHES = 0
 SKIP_LAUNCHES = 0
 
-# lanes per activity flag of B2: its CUDA block (kThreads in the source)
+# lanes per activity flag of B2 (kSkipBlock in the source)
 SKIP_BLOCK = 256
 
 _N_IN = 13
@@ -57,10 +60,10 @@ def _kernel(dtype: torch.dtype, skip: bool):
         name = name.replace("mc_secant", "mc_secant_skip")
     fn = getattr(_build.load("mc_secant"), name)
     if fn.argtypes is None:
-        # after dt: 6 outputs, then B1's trips, evaluations and work
-        # counter, or B2's 6 prev and its flags
+        # after dt: 6 outputs, B2's 6 prev and its flags, then the trips,
+        # the evaluations and the work counter
         fn.argtypes = ([ctypes.c_void_p] * _N_IN + [c_real]
-                       + [ctypes.c_void_p] * (13 if skip else 9)
+                       + [ctypes.c_void_p] * (16 if skip else 9)
                        + [ctypes.c_int64, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -115,10 +118,10 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     same lanes) selects the block-skip kernel B2: a block none of whose
     lanes is active returns ``prev``'s values for its lanes.  The caller
     guarantees that ``active_rows`` marks every lane whose inputs moved
-    since the call that produced ``prev``.  ``return_trips`` (B1 only)
-    returns ``(MCOutput, trips, evals)``: each lane's int32 secant trips
-    and the trips among them that evaluated the residual (both 0 for a
-    lane without flow).
+    since the call that produced ``prev``.  ``return_trips`` returns
+    ``(MCOutput, trips, evals)``: each lane's int32 secant trips and the
+    trips among them that evaluated the residual (both 0 for a lane
+    without flow and for a lane that B2 copied through).
     """
     global LAUNCHES, SKIP_LAUNCHES
     args = (qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0, depthp)
@@ -126,8 +129,6 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     skip = active_rows is not None
     if skip != (prev is not None):
         raise ValueError("active_rows and prev go together")
-    if skip and return_trips:
-        raise ValueError("return_trips is for the full solve (B1) only")
     _check(args + (tuple(prev[:n_out]) if skip else ()))
     if skip and (active_rows.shape != qup.shape
                  or active_rows.dtype != torch.bool
@@ -138,12 +139,12 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
         if skip:
             out = mc.solve_block_skip(*args, dt=float(dt),
                                       ran=block_active_lanes(active_rows),
-                                      prev=prev)
+                                      prev=prev, return_trips=return_trips)
         else:
             out = mc.solve_block(*args, dt=float(dt),
                                  return_trips=return_trips)
-            if return_trips:
-                out, trips, evals = out[:6], out[6], out[7]
+        if return_trips:
+            out, trips, evals = out[:6], out[6], out[7]
     elif qup.device.type == "cuda":
         nseg = qup.shape[0]
         out = [torch.empty_like(qup) for _ in range(n_out)]
@@ -156,11 +157,10 @@ def muskingum_cunge_cuda(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
                 flags = block_flags(active_rows).to(torch.int32)
                 ptrs += [p.data_ptr() for p in prev[:n_out]] \
                     + [None] * (6 - n_out) + [flags.data_ptr()]
-            else:
-                # B1's work counter, zeroed on the launch stream
-                counter = torch.zeros(1, dtype=torch.int32, device=qup.device)
-                ptrs += [None if c is None else c.data_ptr()
-                         for c in (trips, evals)] + [counter.data_ptr()]
+            # the grid's work counter, zeroed on the launch stream
+            counter = torch.zeros(1, dtype=torch.int32, device=qup.device)
+            ptrs += [None if c is None else c.data_ptr()
+                     for c in (trips, evals)] + [counter.data_ptr()]
             with torch.cuda.device(qup.device):
                 stream = torch.cuda.current_stream(qup.device).cuda_stream
                 rc = _kernel(qup.dtype, skip)(*[a.data_ptr() for a in args],

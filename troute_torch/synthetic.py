@@ -2,7 +2,10 @@
 
 The port's copy of ``synthetic_conus`` and ``channel_params`` of the JAX
 package's benchmark (``bench.py:99-145``), with the same random streams,
-so both packages build bit-identical inputs from one seed.
+so both packages build bit-identical inputs from one seed; and writers
+that put such a network on disk as the files the command line reads
+without HDF5: a HYFeatures geopackage (``sqlite3``) and NEXOUT CSV
+forcing.
 """
 
 from __future__ import annotations
@@ -57,3 +60,79 @@ def channel_params(n, rng):
         ncc=np.full(n, 0.11, np.float32),
         cs=rng.uniform(0.3, 1.5, n).astype(np.float32),
         s0=rng.uniform(0.001, 0.02, n).astype(np.float32))
+
+
+def write_hyfeatures_geopackage(path, ids, down, chan, lakes=None,
+                                gages=None) -> None:
+    """The network (``ids``, downstream ``down`` with 0 a tailwater,
+    channel parameters ``chan`` as from ``channel_params``) as a
+    new-generation HYFeatures geopackage, the layout
+    ``network/hyfeatures.py:read_geopkg`` reads: ``flowpaths`` (wb-<id> ->
+    its downstream nexus), ``nexus`` (nex-<id> -> wb-<id>: every flowpath
+    has the nexus that feeds it, shared by its upstream flowpaths),
+    ``flowpath_attributes``, ``network`` (gage tags) and ``lakes``.
+
+    ``lakes``: {lake id: (flowpath id, [LkArea, LkMxE, OrificeA, OrificeC,
+    OrificeE, WeirC, WeirE, WeirL, ifd])}, each lake one flowpath;
+    ``gages``: {flowpath id: USGS gage id (digits)}.
+    """
+    import sqlite3
+
+    ids = np.asarray(ids, np.int64).tolist()
+    down = np.asarray(down, np.int64).tolist()
+    lakes, gages = lakes or {}, gages or {}
+    lake_of = {int(seg): int(lk) for lk, (seg, _) in lakes.items()}
+    wb = [f"wb-{i}" for i in ids]
+    con = sqlite3.connect(path)
+    try:
+        con.execute("CREATE TABLE flowpaths (fid INTEGER, id TEXT, toid TEXT)")
+        con.executemany(
+            "INSERT INTO flowpaths VALUES (NULL, ?, ?)",
+            zip(wb, (f"nex-{d}" if d else f"tnx-{i}"
+                     for i, d in zip(ids, down))))
+        con.execute("CREATE TABLE nexus "
+                    "(fid INTEGER, id TEXT, toid TEXT, hl_uri TEXT)")
+        con.executemany("INSERT INTO nexus VALUES (NULL, ?, ?, NULL)",
+                        zip((f"nex-{i}" for i in ids), wb))
+        con.execute(
+            "CREATE TABLE flowpath_attributes (fid INTEGER, id TEXT,"
+            " rl_NHDWaterbodyComID TEXT, MusK REAL, MusX REAL, n REAL,"
+            " So REAL, ChSlp REAL, BtmWdth REAL, nCC REAL, TopWdthCC REAL,"
+            " TopWdth REAL, length_m REAL)")
+        cols = [np.asarray(chan[k], np.float64).tolist()
+                for k in ("n", "s0", "cs", "bw", "ncc", "twcc", "tw", "dx")]
+        con.executemany(
+            "INSERT INTO flowpath_attributes VALUES "
+            "(NULL, ?, ?, 3600, 0.2, ?, ?, ?, ?, ?, ?, ?, ?)",
+            zip(wb, (str(lake_of[i]) if i in lake_of else None for i in ids),
+                *cols))
+        con.execute("CREATE TABLE network "
+                    "(fid INTEGER, id TEXT, hl_uri TEXT, hydroseq REAL)")
+        con.executemany(
+            "INSERT INTO network VALUES (NULL, ?, ?, ?)",
+            ((f"wb-{seg}", f"Gages-{g}", float(k))
+             for k, (seg, g) in enumerate(gages.items())))
+        con.execute(
+            "CREATE TABLE lakes (fid INTEGER, id TEXT, hl_link REAL,"
+            " LkArea REAL, LkMxE REAL, OrificeA REAL, OrificeC REAL,"
+            " OrificeE REAL, WeirC REAL, WeirE REAL, WeirL REAL, ifd REAL,"
+            " Dam_Length REAL)")
+        con.executemany(
+            "INSERT INTO lakes VALUES (NULL, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?,"
+            " 10.0)",
+            ((f"wb-{seg}", float(lk), *[float(v) for v in parms])
+             for lk, (seg, parms) in lakes.items()))
+        con.commit()
+    finally:
+        con.close()
+
+
+def write_nexout_csv(path, ids, values) -> None:
+    """One NEXOUT forcing file: the discharge ``values`` of the nexuses
+    ``nex-<id>`` of ``write_hyfeatures_geopackage``, one row per nexus
+    under a header line, as ``hyfeatures.py:read_qlat_nexout`` reads it."""
+    import pandas as pd
+
+    pd.DataFrame({"q": np.asarray(values, np.float32)},
+                 index=pd.Index(np.asarray(ids, np.int64),
+                                name="feature_id")).to_csv(path)
