@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py [--baseline DIR]
+    python3 chip_smoke.py [--baseline DIR] [--phases LIST]
+                          [--diffusive-steps N]
 
 1. Device: the card's name and power limit, the torch/CUDA/nvcc versions,
    and the builds from this checkout, started together: the MC kernels
@@ -22,7 +23,7 @@ Run from the root of a checkout, with no arguments:
    mean and max, residual evaluations, the SIMT efficiency of one thread
    per lane in 32-lane warps, the bound and the slowest lane alone (the
    floor no scheduling removes).
-3. Engine, card against CPU: ``route_stepped`` on a 200,000-segment
+3. Engine, card against CPU: ``route_stepped`` on a 100,000-segment
    synthetic network with level-pool reservoirs and gages, 24 steps, on
    the card (kernel) and on the CPU (plain), in f64 (``check_f64_network``)
    and f32 (the f32 bar).
@@ -37,8 +38,8 @@ Run from the root of a checkout, with no arguments:
    activity patterns; active blocks equal B1, inactive blocks ``prev``;
    B2, plain and B1 ms per pattern (f32).
 6. Strict engine, card against CPU: ``route_stepped``'s strict fixed-point
-   mode (accelerator "auto", block skip on) on a 50,000-segment network
-   with 50 reservoirs and 100 gages, 6 steps from a warm state, f64 (rtol
+   mode (accelerator "auto", block skip on) on a 25,000-segment network
+   with 25 reservoirs and 50 gages, 6 steps from a warm state, f64 (rtol
    1e-9, atol 1e-8) and f32 (the f32 bar, at most 1e-3 of the values past
    rtol/atol 1e-4); the card's B1/B2 launches equal the driver's own MC
    call counts.
@@ -59,7 +60,7 @@ Run from the root of a checkout, with no arguments:
    subsets and the lite restarts read back, B1 launched once per step, the
    boundary restart equal to the first run set's last step; ``task_times``
    and seg-ts/s of the route part and of the whole command.  Then the same
-   control file on a 100,000-flowpath domain: on the card against
+   control file on a 50,000-flowpath domain: on the card against
    ``--cpu`` (the f32 bar), two run sets against one (the f32 bar: the
    second set is warm from the first), and 12 steps with
    ``strict_iterative`` and ``strict_block_skip`` on from the first run
@@ -69,6 +70,45 @@ Run from the root of a checkout, with no arguments:
    against ``--cpu``: the strict f32 bar of phase 6.  NetCDF inputs
    (TimeSlice observations for nudging) need ``h5py`` and are not part of
    this phase.
+9. ``route()``'s level scan (the schema's default strict configuration):
+   a regional network of 100,000 segments in 100 basins of 1,000 (the
+   CONUS generator's hop rule within each basin; its giant basins are
+   far deeper than real ones), 300 level-pool reservoirs and 300 gages,
+   24 steps at dt 300 s, qts 12, from a routed state, in f64 and f32:
+   against ``route_stepped``'s fixed point on the card (phase 6's strict
+   bars), and over the first 2 steps the card against the CPU (phase 3's
+   f64 bar, phase 6's strict f32 bar; on the host the plain MC solve
+   costs ~20 ms per level row); B1 launched once per level row per step, equal to
+   the engine's count; ms per step, device kernels per step, B1's time
+   per level launch and the idle share of one profiled call (f32).  Then
+   phase 8's control file at 25,000 flowpaths in 100 equal basins with
+   the schema's default compute parameters (the level scan), 6 steps from
+   the 15:00 restart, on the card against ``--cpu``.
+10. The diffusive solver (``troute_torch/diffusive``) on the JAX
+   benchmark's mainstem reach tree (``synthetic.mainstem_tree``: R=2048
+   reaches, C=16 nodes, 24 steps of 300 s, saved every step) in four
+   configurations: f32 Jacobi with uniform 128-entry tables, f32 and f64
+   Jacobi with exact tables, and the f64 wavefront corrector at R=256.
+   Each: the card against the port's CPU run at R=256 over 4 steps (f64
+   rtol 1e-9 on all but 1e-5 of the values; f32 the f32 bar on q and
+   surfaces within 1e-3 m; all finite), seg-ts/s (valid nodes x steps /
+   the seconds of one run after a 2-step warm-up: 24 steps for the
+   uniform-table leg, 6 for the others), sub-steps, sweeps per sub-step,
+   Newton iterations per ``rtsafe`` call, host syncs per sub-step, device
+   kernels per sub-step and the idle share of one profiled 1-step run,
+   and (Jacobi) the device ms of one predictor call in each form.  Every
+   configuration is bound by launches from the host, so a run costs about
+   as much at R=256 as at R=2048 and its time follows the steps (20-60 s
+   per 24 steps), which the script's time limit rations.  Then 8 trees of
+   256 reaches (f32, Jacobi, uniform tables) as one [8, 256, 16] call on
+   the card over 2 steps, against 8
+   solo calls (rtol 1e-12) and against the CPU.
+
+``--phases LIST`` (e.g. ``9,10`` or ``2-8``) runs only those phases after
+phase 1 and then prints no result lines; the default runs them all.
+``--diffusive-steps N`` times every phase-10 configuration over N steps
+(``--phases 10 --diffusive-steps 24`` gives 24-step rates for all four;
+the whole script would then outrun its time limit on a slow host).
 
 ``--baseline DIR`` (a checkout of an earlier commit, e.g. unpacked with
 ``git archive``: its B2 is one CUDA block per flag block and takes the
@@ -110,6 +150,8 @@ NAMES = ("qup", "quc", "qdp", "ql", "dx", "bw", "tw", "twcc", "n", "ncc",
          "cs", "s0", "depthp")
 DT = 300.0
 N_CONUS = 2_729_077
+# phase 9's regional network: 100 basins of 1,000 segments
+N_REGION, N_BASINS = 100_000, 100
 
 # golden inputs and outputs of the reference demo (tests/test_muskingum.py)
 GOLDEN = dict(qup=0.04598825, quc=0.04598825, qdp=0.21487340, ql=40.0,
@@ -659,12 +701,31 @@ def phase_kernel_vs_plain(device, dev: dict, n32: int, n64: int,
     return res
 
 
-def _network(n: int, n_res: int, n_gage: int, seed: int):
-    """Post-order synthetic CONUS-statistics network with level-pool
-    reservoirs and gages, as NumPy inputs for ``route_stepped``."""
+def regional_network(n: int, n_basins: int, seed: int):
+    """A regional drainage network: ``n`` segments in ``n_basins`` basins
+    of equal size, each wired by ``synthetic_conus``'s hop rule (a forward
+    hop of 1-4 segments within the basin, its last segment the
+    tailwater).  The CONUS generator's few giant basins are hundreds of
+    thousands of levels deep (491,078 at full size), where a real basin of
+    a million segments is about 4,000; a region of many basins is the
+    level scan's realistic shape."""
+    rng = np.random.default_rng(seed)
+    ids = np.arange(1, n + 1, dtype=np.int64)
+    idx = np.arange(n)
+    size = -(-n // n_basins)
+    basin_end = np.minimum((idx // size + 1) * size, n) - 1
+    down = ids[np.minimum(idx + rng.integers(1, 5, n), basin_end)]
+    down[idx == basin_end] = 0
+    return ids, down
+
+
+def _network(n: int, n_res: int, n_gage: int, seed: int, conn=None):
+    """Post-order synthetic network (``conn`` = (ids, downstream ids), or
+    CONUS statistics) with level-pool reservoirs and gages, as NumPy
+    inputs for the engine."""
     from troute_torch import synthetic
     from troute_torch.network.topology import build_topology_postorder
-    ids, down = synthetic.synthetic_conus(n=n)
+    ids, down = synthetic.synthetic_conus(n=n) if conn is None else conn
     rng = np.random.default_rng(seed)
     has_up = np.zeros(n, bool)
     has_up[np.searchsorted(ids, down[down > 0])] = True
@@ -688,13 +749,14 @@ def _network(n: int, n_res: int, n_gage: int, seed: int):
     return topo, chan, lp, q0, d0, elev0, qlat, gage
 
 
-def _route(device, dtype, case, nts: int, qts: int = 12,
-           strict: bool = False, start: dict | None = None,
-           collect: bool = True):
-    """``route_stepped`` on ``case`` from its initial state, or from the
-    tensors of ``start`` (q, depth, res_elev, lastobs_val, lastobs_time,
-    copied to ``device``): short steps, or strict fixed-point steps with
-    the block skip on."""
+def _route_args(device, dtype, case, nts: int, qts: int = 12,
+                strict: bool = False, start: dict | None = None,
+                levels: bool = False, **cfg_kw) -> tuple:
+    """The engine's arguments for ``case`` on ``device``, from its initial
+    state or from the tensors of ``start`` (q, depth, res_elev,
+    lastobs_val, lastobs_time, copied to ``device``): short steps, strict
+    fixed-point steps with the block skip on, or (``levels``) the level
+    scan's network arrays and config."""
     import torch
     from troute_torch.ops.levelpool import LevelpoolParams
     from troute_torch.routing import engine
@@ -709,18 +771,34 @@ def _route(device, dtype, case, nts: int, qts: int = 12,
              lastobs_val=gage["lastobs_val"],
              lastobs_time=gage["lastobs_time"])
     s.update(start or {})
-    net = engine.network_arrays_from_topology(topo, device=device)
+    net = engine.network_arrays_from_topology(topo, device=device,
+                                              need_levels=levels)
     da = engine.GageDA(rows=t(gage["rows"], torch.int64), obs=t(gage["obs"]),
                        lastobs_val=t(s["lastobs_val"]),
                        lastobs_time=t(s["lastobs_time"]), decay_coeff=120.0)
+    cfg_kw.setdefault("strict_block_skip", strict)
     cfg = engine.RoutingConfig(
-        dt=DT, nts=nts, qts_subdivisions=qts, assume_short_ts=not strict,
-        strict_iterative=strict, strict_block_skip=strict)
-    out = engine.route_stepped(
-        net, engine.ChannelParams.from_arrays(device=device, dtype=dtype,
-                                              **chan),
-        LevelpoolParams(*[t(v) for v in lp]), cfg, t(s["q"]), t(s["depth"]),
-        t(s["res_elev"]), t(qlat), da, collect=collect)
+        dt=DT, nts=nts, qts_subdivisions=qts,
+        assume_short_ts=not (strict or levels), strict_iterative=strict,
+        **cfg_kw)
+    return (net, engine.ChannelParams.from_arrays(device=device, dtype=dtype,
+                                                  **chan),
+            LevelpoolParams(*[t(v) for v in lp]), cfg, t(s["q"]),
+            t(s["depth"]), t(s["res_elev"]), t(qlat), da)
+
+
+def _route(device, dtype, case, nts: int, qts: int = 12,
+           strict: bool = False, start: dict | None = None,
+           collect: bool = True, levels: bool = False, **cfg_kw):
+    """``route_stepped`` (or with ``levels`` ``route()``) on
+    ``_route_args``'s inputs; the outputs and final state by name."""
+    import torch
+    from troute_torch.routing import engine
+    args = _route_args(device, dtype, case, nts, qts, strict, start, levels,
+                       **cfg_kw)
+    net = args[0]
+    out = (engine.route(*args) if levels
+           else engine.route_stepped(*args, collect=collect))
     if device != "cpu":
         torch.cuda.synchronize()
     st = out["state"]
@@ -731,6 +809,8 @@ def _route(device, dtype, case, nts: int, qts: int = 12,
     if strict:
         res.update(strict_sweeps=out["strict_sweeps"],
                    strict_mc_calls=out["strict_mc_calls"])
+    if levels:
+        res.update(mc_calls=out["mc_calls"], net=net)
     return res
 
 
@@ -1101,15 +1181,26 @@ def _warm_state(device, dtype, case, nts: int = 12):
     return _route(device, dtype, case, nts, qts=6, collect=False)["state"]
 
 
+def _state_dict(st) -> dict:
+    return dict(q=st.q, depth=st.depth, res_elev=st.res_elev,
+                lastobs_val=st.lastobs_val, lastobs_time=st.lastobs_time)
+
+
+def _run_values(run: dict) -> np.ndarray:
+    """Every output value of an engine run (fvd, nudge, final state) as
+    one vector."""
+    keys = ("fvd", "nudge", "q", "depth", "res_elev", "lastobs_val",
+            "lastobs_time")
+    return np.concatenate([run[k].detach().cpu().numpy().ravel()
+                           for k in keys])
+
+
 def phase_strict_card_vs_cpu(device, n: int, nts: int) -> None:
     import torch
     from troute_torch.ops import muskingum_cuda as mcc
     case = _network(n, n_res=n // 1000, n_gage=n // 500, seed=5)
     for dtype in (torch.float64, torch.float32):
-        st = _warm_state(device, dtype, case)
-        start = dict(q=st.q, depth=st.depth, res_elev=st.res_elev,
-                     lastobs_val=st.lastobs_val,
-                     lastobs_time=st.lastobs_time)
+        start = _state_dict(_warm_state(device, dtype, case))
         strict = dict(nts=nts, qts=3, strict=True, start=start)
         mcc.LAUNCHES = mcc.SKIP_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1124,10 +1215,7 @@ def phase_strict_card_vs_cpu(device, n: int, nts: int) -> None:
         t0 = time.perf_counter()
         cpu = _route("cpu", dtype, case, **strict)
         t_cpu = time.perf_counter() - t0
-        keys = ("fvd", "nudge", "q", "depth", "res_elev", "lastobs_val",
-                "lastobs_time")
-        got = np.concatenate([card[k].cpu().numpy().ravel() for k in keys])
-        want = np.concatenate([cpu[k].numpy().ravel() for k in keys])
+        got, want = _run_values(card), _run_values(cpu)
         if not np.isfinite(got[~np.isnan(want)]).all():
             raise AssertionError("non-finite strict output on the card")
         if dtype == torch.float64:
@@ -1162,15 +1250,17 @@ def profile_window(fn) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    spans, by_name = [], {}
+    spans, by_name, counts = [], {}, {}
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
                 and "dur" in e:
             spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
             name = e.get("name", "?")[:60]
             by_name[name] = by_name.get(name, 0.0) + float(e["dur"])
+            counts[name] = counts.get(name, 0) + 1
     if not spans:
-        return dict(busy_ms=None, launches=0, top=[])
+        return dict(busy_ms=None, launches=0, top=[], by_name={},
+                    counts={})
     busy, end = 0.0, -np.inf
     for a, b in sorted(spans):
         if b > end:
@@ -1178,7 +1268,9 @@ def profile_window(fn) -> dict:
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(busy_ms=busy / 1e3, launches=len(spans),
-                top=[(k, round(v / 1e3, 3)) for k, v in top])
+                top=[(k, round(v / 1e3, 3)) for k, v in top],
+                by_name={k: v / 1e3 for k, v in by_name.items()},
+                counts=counts)
 
 
 def phase_strict_main_path(device, dev: dict, ctx: dict,
@@ -1350,9 +1442,13 @@ def phase_strict_main_path(device, dev: dict, ctx: dict,
 
 
 
-def _cli_domain(base: Path, n: int, out_kinds: tuple) -> dict:
+def _cli_domain(base: Path, n: int, out_kinds: tuple,
+                n_basins: int | None = None) -> dict:
     """A command-line case under ``base``: the synthetic CONUS network of
-    ``n`` flowpaths as a HYFeatures geopackage with about n // 500
+    ``n`` flowpaths (in ``n_basins`` basins of the CONUS size skew, by
+    default CONUS's count scaled to ``n``; with ``n_basins`` given, basins
+    of equal size, ``regional_network``) as a HYFeatures geopackage with
+    about n // 500
     level-pool lakes and n // 350 gages, four hourly NEXOUT CSV files (2 run sets of
     24 steps at dt 300 s, qts 12) and ``cfg.yaml`` (short mode, lite
     restart, CSV and, with "parquet" in ``out_kinds``, parquet output of
@@ -1363,8 +1459,9 @@ def _cli_domain(base: Path, n: int, out_kinds: tuple) -> dict:
     t0 = time.perf_counter()
     base.mkdir(parents=True)
     (base / "forcing").mkdir()
-    ids, down = synthetic.synthetic_conus(
+    ids, down = (synthetic.synthetic_conus(
         n, n_basins=max(synthetic.CONUS_BASINS * n // N_CONUS, 12))
+        if n_basins is None else regional_network(n, n_basins, seed=1))
     rng = np.random.default_rng(1)
     chan = synthetic.channel_params(n, rng)
     inner = ids[np.isin(ids, down) & (down > 0)]
@@ -1417,28 +1514,33 @@ def _cli_domain(base: Path, n: int, out_kinds: tuple) -> dict:
 def _cli_run(base: Path, cfg: dict, name: str, *flags) -> dict:
     """``main_v04`` on ``cfg`` written as ``base/name``; beside the result,
     B1's and B2's launches of that run and the MC calls that the engine
-    itself counted in strict mode (``strict_mc_calls``, summed over the run
-    sets; zeros in short mode)."""
+    itself counted in strict mode (``strict_mc_calls`` of ``route_stepped``
+    and ``mc_calls`` of ``route()``, summed over the run sets; zeros in
+    short mode)."""
     import yaml
     from troute_torch import cli
     from troute_torch.ops import muskingum_cuda as mcc
     from troute_torch.routing import engine
     with open(base / name, "w") as f:
         yaml.safe_dump(cfg, f)
-    real, calls = engine.route_stepped, {"mc_secant": 0, "mc_secant_skip": 0}
+    real = engine.route_stepped, engine.route
+    calls = {"mc_secant": 0, "mc_secant_skip": 0}
 
-    def counted(*args, **kw):
-        out = real(*args, **kw)
-        for k, v in out.get("strict_mc_calls", {}).items():
-            calls[k] += v
-        return out
+    def counted(fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            for k, v in out.get("strict_mc_calls", {}).items():
+                calls[k] += v
+            calls["mc_secant"] += out.get("mc_calls", 0)
+            return out
+        return run
 
     mcc.LAUNCHES = mcc.SKIP_LAUNCHES = 0
-    engine.route_stepped = counted
+    engine.route_stepped, engine.route = (counted(f) for f in real)
     try:
         res = cli.main_v04(["-f", str(base / name), *flags])
     finally:
-        engine.route_stepped = real
+        engine.route_stepped, engine.route = real
     res["launches"] = {"mc_secant": mcc.LAUNCHES,
                        "mc_secant_skip": mcc.SKIP_LAUNCHES}
     res["strict_mc_calls"] = calls
@@ -1654,6 +1756,392 @@ def phase_cli(dev: dict, n_full: int, n_small: int, n_strict: int) -> dict:
     return dict(launches=launches, strict_launches=sres["launches"], **full)
 
 
+def phase_level_scan(device, dev: dict, n: int, n_basins: int, nts: int,
+                     nts_cpu: int, n_cli: int, cli_basins: int) -> dict:
+    """``route()``'s level scan on the card (the module docstring, phase
+    9).  The CPU halves run ``nts_cpu`` steps: on the host the plain MC
+    solve of a level row costs ~20 ms whatever its width, so a step costs
+    ~20 ms per level row."""
+    import torch
+    from troute_torch.ops import muskingum_cuda as mcc
+    smi = dev["smi"]
+    t0 = time.perf_counter()
+    case = _network(n, n_res=300, n_gage=300, seed=9,
+                    conn=regional_network(n, n_basins, seed=9))
+    topo = case[0]
+    widest = int(np.bincount(topo.level).max())
+    log(f"phase 9: regional network, N={n} in {n_basins} basins, 300 "
+        f"level-pool reservoirs, 300 gages: {topo.n_levels} levels, the "
+        f"widest {widest} segments (setup {time.perf_counter() - t0:.1f} s)")
+    out = dict(launches=0)
+    starts = {}
+    for dtype in (torch.float64, torch.float32):
+        # a routed start, as production strict windows have (phase 6)
+        starts[dtype] = _state_dict(_warm_state(device, dtype, case))
+        start = starts[dtype]
+        mcc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        card = _route(device, dtype, case, nts, levels=True, start=start)
+        t_card = time.perf_counter() - t0
+        rows = int(card["net"].level_nodes.shape[0])
+        if not mcc.LAUNCHES == card["mc_calls"] == rows * nts:
+            raise AssertionError(f"level scan: {mcc.LAUNCHES} B1 launches, "
+                                 f"the engine counted {card['mc_calls']}, "
+                                 f"{rows} rows x {nts} steps")
+        fixed = _route(device, dtype, case, nts, strict=True, start=start,
+                       strict_block_skip=False)
+        got, fp = _run_values(card), _run_values(fixed)
+        if not np.isfinite(got[~np.isnan(fp)]).all():
+            raise AssertionError("non-finite level-scan output on the card")
+        # the first nts_cpu steps, on the card and on the CPU
+        mcc.LAUNCHES = 0
+        short = _route(device, dtype, case, nts_cpu, levels=True,
+                       start=start)
+        out["launches"] += mcc.LAUNCHES + rows * nts
+        if mcc.LAUNCHES != rows * nts_cpu:
+            raise AssertionError("the short level scan launched "
+                                 f"{mcc.LAUNCHES} B1 kernels")
+        t0 = time.perf_counter()
+        cpu = _route("cpu", dtype, case, nts_cpu, levels=True, start=start)
+        t_cpu = time.perf_counter() - t0
+        got_s, want = _run_values(short), _run_values(cpu)
+        if dtype == torch.float64:
+            st = check_f64_network(got_s, want, "level scan f64")
+            bar = f"rtol 1e-9 off at {st['off']} of {st['n']} values"
+            st = check_f64_network(got, fp, "level scan vs fixed point f64",
+                                   atol=1e-8)
+            fp_bar = (f"rtol 1e-9 / atol 1e-8 off at {st['off']}, max rel "
+                      f"{st['max']:.3g}")
+        else:
+            bar = check_strict_f32(got_s, want, "level scan f32")
+            fp_bar = check_strict_f32(got, fp, "level scan vs fixed point")
+        log(f"phase 9: route() level scan {dtype}, {nts} steps, qts 12, "
+            f"from a routed state: {rows} rows, B1 launches {rows * nts} = "
+            f"rows x steps = the engine's count, card {t_card:.2f} s; "
+            f"against route_stepped's fixed point on the card: {fp_bar}; "
+            f"the first {nts_cpu} steps, card vs cpu: {bar} (cpu "
+            f"{t_cpu:.2f} s)")
+        out["rows"] = rows
+        del card, cpu, fixed, short
+    # f32 timing of route() alone on prebuilt inputs: the level scan is
+    # bound by launches from the host
+    from troute_torch.routing import engine
+    f32 = torch.float32
+    args = _route_args(device, f32, case, nts, start=starts[f32],
+                       levels=True)
+    args6 = args[:3] + (args[3]._replace(nts=6),) + args[4:]
+    mcc.LAUNCHES = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.route(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times[1:])
+    prof = profile_window(lambda: engine.route(*args6))
+    b1_n = sum(v for k, v in prof["counts"].items() if "mc_secant" in k)
+    b1_ms = sum(v for k, v in prof["by_name"].items() if "mc_secant" in k)
+    if b1_n != 6 * out["rows"] \
+            or mcc.LAUNCHES != (3 * nts + 6) * out["rows"]:
+        raise AssertionError(f"the timed runs launched {mcc.LAUNCHES} B1 "
+                             f"kernels, the profiled run traced {b1_n}")
+    out["launches"] += mcc.LAUNCHES
+    wall6 = best * 6 / nts
+    idle = (None if prof["busy_ms"] is None
+            else 1.0 - prof["busy_ms"] / (wall6 * 1e3))
+    out.update(ms_step=best / nts * 1e3, launches_step=prof["launches"] / 6,
+               b1_ms_per_launch=b1_ms / b1_n, idle=idle)
+    log(f"phase 9: level scan f32, {nts}-step route() calls: best "
+        f"{best:.3f} s of {len(times) - 1} after a warm-up = "
+        f"{out['ms_step']:.2f} ms per step, {n * nts / best:.4e} seg-ts/s; "
+        f"one profiled 6-step call: {out['launches_step']:.0f} device "
+        f"kernels per step ({out['rows']} of them B1), B1 "
+        f"{out['b1_ms_per_launch'] * 1e3:.2f} us per level launch, device "
+        f"busy {prof['busy_ms']:.1f} ms against {wall6 * 1e3:.0f} ms of an "
+        f"unprofiled 6 steps (idle share {idle:.3f}); top {prof['top']}"
+        f"  [{smi}]")
+    cli = _cli_level_scan(dev, n_cli, cli_basins)
+    out["launches"] += cli["cli_launches"]
+    return out
+
+
+def _cli_level_scan(dev: dict, n: int, n_basins: int) -> dict:
+    """Phase 8's control file at ``n`` flowpaths in ``n_basins`` equal
+    basins with the schema's default compute parameters (the level scan),
+    6 steps from the 15:00 lite restart of a short run, on the card
+    against ``--cpu``.  Phase 8's CONUS-skewed basins at 25,000 flowpaths
+    are ~4,500 levels deep, which ``--cpu`` would route in ~10 minutes."""
+    import copy
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp) / "levels"
+        case = _cli_domain(base, n, ("csv",), n_basins=n_basins)
+        _cli_run(base, case["cfg"], "cfg.yaml")
+        cfg = copy.deepcopy(case["cfg"])
+        comp = cfg["compute_parameters"]
+        del comp["assume_short_ts"]
+        comp["restart_parameters"] = {
+            "start_datetime": "2021-08-23_15:00",
+            "lite_channel_restart_file": "restart/channel_restart_202108231500",
+            "lite_waterbody_restart_file":
+                "restart/waterbody_restart_202108231500"}
+        comp["forcing_parameters"].update(nts=6, max_loop_size=1)
+        cfg["output_parameters"] = {}
+        card = _cli_run(base, cfg, "levels.yaml")
+        cpu = _cli_run(base, cfg, "levels.yaml", "--cpu")
+    rows = card["strict_mc_calls"]["mc_secant"] // 6
+    if card["launches"] != {"mc_secant": 6 * rows, "mc_secant_skip": 0} \
+            or cpu["launches"]["mc_secant"] or not rows \
+            or cpu["strict_mc_calls"]["mc_secant"] != 6 * rows:
+        raise AssertionError(f"level scan under the command line: launched "
+                             f"{card['launches']}, route() counted "
+                             f"{card['strict_mc_calls']}")
+    got = np.concatenate([card["fvd"].ravel(),
+                          *[a.ravel() for a in card["final_state"]]])
+    want = np.concatenate([cpu["fvd"].ravel(),
+                           *[a.ravel() for a in cpu["final_state"]]])
+    if card["fvd"].shape != (6, n, 3) or not np.isfinite(got).all():
+        raise AssertionError("level scan under the command line: fvd "
+                             f"{card['fvd'].shape} or not finite")
+    bar = check_strict_f32(got, want, "phase 9 command line card vs --cpu")
+    log(f"phase 9: python -m troute_torch -f levels.yaml (the schema's "
+        f"default compute parameters: the level scan), N={n}, 6 steps from "
+        f"the 15:00 restart: {rows} rows, B1 launches {card['launches']} = "
+        f"rows x steps; card vs --cpu: {bar}; route card "
+        f"{card['task_times']['route_time']:.2f} s, --cpu "
+        f"{cpu['task_times']['route_time']:.2f} s  [{dev['smi']}]")
+    return dict(cli_launches=card["launches"]["mc_secant"])
+
+
+def check_share(got, want, what: str, rtol: float, share: float) -> dict:
+    """rtol (atol 1e-12) on all but ``share`` of the values."""
+    off = ~np.isclose(got, want, rtol=rtol, atol=1e-12)
+    st = dict(off=int(off.sum()), n=int(off.size),
+              max=float(rel_diff(got, want).max()))
+    if st["off"] > share * st["n"]:
+        raise AssertionError(f"{what}: {st['off']} of {st['n']} values past "
+                             f"rtol {rtol}")
+    return st
+
+
+DIFFUSIVE_CONFIGS = (
+    # name, dtype, corrector, uniform table entries, reaches (None: the
+    # phase's R), routing steps of the timed run
+    ("f32 jacobi uniform-128", "float32", "jacobi", 128, None, 24),
+    ("f32 jacobi exact", "float32", "jacobi", None, None, 6),
+    ("f64 jacobi exact", "float64", "jacobi", None, None, 6),
+    ("f64 wavefront", "float64", "wavefront", None, 256, 6),
+)
+
+
+def _diffusive_run(device, dtype, mode, nel, r, c, nts, seed=2,
+                   stats=None, t_steps=None):
+    """``mainstem_tree(r, c, seed)`` built on ``device``, initialised, and
+    routed ``t_steps`` (default ``nts``) steps of 300 s, saved each step;
+    returns (domain, state, saves, seconds of the run)."""
+    import torch
+    from troute_torch.diffusive.domain import build_domain
+    from troute_torch.diffusive.solver import (initialize_state,
+                                               run_diffusive)
+    from troute_torch.synthetic import mainstem_tree
+    dom = build_domain(*mainstem_tree(r, c, seed=seed, nts=nts),
+                       device=device, dtype=dtype, nel_uniform=nel)
+    st0 = initialize_state(dom, torch.full((r, c), 30.0, dtype=dtype,
+                                           device=device), DT / 10.0,
+                           corrector_mode=mode)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    st, saves = run_diffusive(dom, st0, (t_steps or nts) * DT, DT,
+                              corrector_mode=mode, dispatch="device",
+                              stats=stats)
+    sync()
+    return dom, st0, st, saves, time.perf_counter() - t0
+
+
+def _diffusive_values(dom, saves) -> tuple[np.ndarray, np.ndarray]:
+    """(q, y) of every save at the valid nodes, as float64 vectors."""
+    v = dom.valid.cpu().numpy()
+    q = np.concatenate([s[1].cpu().numpy()[v] for s in saves])
+    y = np.concatenate([s[2].cpu().numpy()[v] for s in saves])
+    return q.astype(np.float64), y.astype(np.float64)
+
+
+def _diffusive_bars(card, cpu, dtype, what: str) -> str:
+    """Card against CPU: f64 rtol 1e-9 on all but 1e-5 of the values; f32
+    the f32 bar on q and surfaces within 1e-3 m; all finite."""
+    (qg, yg), (qw, yw) = card, cpu
+    if not (np.isfinite(qg).all() and np.isfinite(yg).all()):
+        raise AssertionError(f"{what}: non-finite output on the card")
+    if dtype == "float64":
+        st = check_share(np.concatenate([qg, yg]), np.concatenate([qw, yw]),
+                         what, rtol=1e-9, share=1e-5)
+        return (f"rtol 1e-9 off at {st['off']} of {st['n']} values, max rel "
+                f"{st['max']:.3g}")
+    st = check_f32_bar(qg, qw, what)
+    dy = float(np.abs(yg - yw).max())
+    if dy > 1e-3:
+        raise AssertionError(f"{what}: surfaces differ by {dy} m")
+    return (f"q median {st['median']:.3g}, p95 {st['p95']:.3g}, max "
+            f"{st['max']:.3g}; surfaces max {dy:.3g} m")
+
+
+def _predictor_ms(dom, st) -> dict:
+    """Device ms of one predictor call in each form on ``st`` (CUDA
+    events, 5 calls back to back after a warm-up)."""
+    import torch
+    from troute_torch.diffusive.solver import predictor
+    dt = torch.tensor(DT / 2.0, dtype=st.q.dtype, device=st.q.device)
+    return {form: cuda_ms(lambda: predictor(dom, st, dt, st.t, form=form))
+            for form in ("seq", "assoc")}
+
+
+def phase_diffusive(device, dev: dict, r: int, c: int, nts: int,
+                    r_cpu: int, nts_cmp: int, batch: int,
+                    timed_steps: int = 0) -> dict:
+    """The diffusive solver on the card (the module docstring, phase 10).
+    Every configuration is bound by launches from the host, so a run
+    costs about the same at R=256 as at R=2048 and its time follows the
+    routing steps: the card-vs-CPU halves run ``nts_cmp`` steps, and each
+    configuration is timed over one run of its steps
+    (``DIFFUSIVE_CONFIGS``, or ``timed_steps`` for all) after a 2-step
+    warm-up.  The first steps after the initialization take fewer
+    sub-steps and sweeps than later ones, so seg-ts/s over 6 steps reads
+    higher than over 24."""
+    import torch
+    smi = dev["smi"]
+    out = {}
+    for name, dt_name, mode, nel, r_cfg, n_timed in DIFFUSIVE_CONFIGS:
+        n_timed = timed_steps or n_timed
+        dtype = getattr(torch, dt_name)
+        r_run = r_cfg or r
+        # card against the port's CPU run on one domain of r_cmp reaches
+        r_cmp = min(r_run, r_cpu)
+        t0 = time.perf_counter()
+        dom_c, _, _, saves_c, _ = _diffusive_run(device, dtype, mode, nel,
+                                                 r_cmp, c, nts,
+                                                 t_steps=nts_cmp)
+        dom_h, _, _, saves_h, t_cpu = _diffusive_run(
+            "cpu", dtype, mode, nel, r_cmp, c, nts, t_steps=nts_cmp)
+        bar = _diffusive_bars(_diffusive_values(dom_c, saves_c),
+                              _diffusive_values(dom_h, saves_h), dt_name,
+                              f"phase 10 {name}")
+        del dom_c, saves_c, dom_h, saves_h
+        cmp_s = time.perf_counter() - t0
+        # a 2-step warm-up, then the timed run at r_run reaches
+        _diffusive_run(device, dtype, mode, nel, r_run, c, nts, t_steps=2)
+        stats = {}
+        dom, st0, st, saves, best = _diffusive_run(
+            device, dtype, mode, nel, r_run, c, nts, stats=stats,
+            t_steps=n_timed)
+        valid = int(dom.valid.sum())
+        q, y = _diffusive_values(dom, saves)
+        if not (np.isfinite(q).all() and np.isfinite(y).all()):
+            raise AssertionError(f"phase 10 {name}: non-finite output")
+        pred = _predictor_ms(dom, st) if mode == "jacobi" else None
+        # one profiled run of 1 routing step (its trace holds every launch)
+        pstats = {}
+        t0 = time.perf_counter()
+        prof = profile_window(lambda: _diffusive_run(
+            device, dtype, mode, nel, r_run, c, nts, stats=pstats,
+            t_steps=1))
+        prof_wall = time.perf_counter() - t0
+        sub = stats["substeps"]
+        sweeps = stats.get("sweeps", [0])
+        res = dict(seg_ts_s=valid * n_timed / best, seconds=best,
+                   steps=n_timed, substeps=sub,
+                   sweeps_mean=float(np.mean(sweeps)),
+                   sweeps_max=int(max(sweeps)),
+                   newton_per_rtsafe=stats["newton_iters"]
+                   / stats["rtsafe_calls"],
+                   syncs_per_substep=stats["syncs"] / sub,
+                   launches_per_substep=prof["launches"]
+                   / max(pstats.get("substeps", 1), 1),
+                   idle=(None if prof["busy_ms"] is None
+                         else 1.0 - prof["busy_ms"] / (prof_wall * 1e3)),
+                   predictor_ms=pred)
+        out[name] = res
+        log(f"phase 10: diffusive {name}, R={r_run} C={c} ({valid} valid "
+            f"nodes), {n_timed} steps of {DT:.0f} s: {best:.3f} s after a "
+            f"2-step warm-up -> {res['seg_ts_s']:.4e} seg-ts/s; {sub} "
+            f"sub-steps, sweeps per sub-step mean {res['sweeps_mean']:.2f} "
+            f"max {res['sweeps_max']}, {res['newton_per_rtsafe']:.2f} Newton "
+            f"iterations per rtsafe call, {res['syncs_per_substep']:.1f} host "
+            f"syncs and {res['launches_per_substep']:.0f} device kernels per "
+            f"sub-step (kernels from one profiled 1-step run, idle share "
+            f"{res['idle']:.3f}, wall {prof_wall:.2f} s); predictor ms on "
+            f"the final state {pred}; card vs cpu at R={r_cmp}, {nts_cmp} "
+            f"steps: {bar} (cpu run {t_cpu:.2f} s, both halves {cmp_s:.1f} "
+            f"s)  [{smi}]")
+        del dom, st0, st, saves
+        torch.cuda.empty_cache()
+    out["batched"] = _diffusive_batched(device, batch, r_cpu, c, 2, smi)
+    return out
+
+
+def _diffusive_batched(device, b: int, r: int, c: int, nts: int,
+                       smi: str) -> dict:
+    """``b`` trees of ``r`` reaches (f32, Jacobi, uniform-128 tables) as one
+    [b, r, c] call on the card, against ``b`` solo calls (rtol 1e-12) and
+    against the CPU."""
+    import torch
+    from troute_torch.diffusive.domain import (build_domain, stack_domains,
+                                               stack_states)
+    from troute_torch.diffusive.solver import (initialize_state,
+                                               run_diffusive,
+                                               run_diffusive_batched)
+    from troute_torch.synthetic import mainstem_tree
+    f32 = torch.float32
+    out = {}
+    for dev_ in (device, "cpu"):
+        doms = [build_domain(*mainstem_tree(r, c, seed=10 + k, nts=nts),
+                             device=dev_, dtype=f32, nel_uniform=128)
+                for k in range(b)]
+        sts = [initialize_state(d, torch.full((r, c), 30.0, dtype=f32,
+                                              device=dev_), DT / 10.0,
+                                corrector_mode="jacobi") for d in doms]
+        bdom = stack_domains(doms)
+        bst = stack_states(sts, doms, c, r)
+        t0 = time.perf_counter()
+        fin, saves = run_diffusive_batched(bdom, bst, nts * DT, DT,
+                                           corrector_mode="jacobi")
+        if dev_ != "cpu":
+            torch.cuda.synchronize()
+        out[dev_] = (bdom, fin, saves, time.perf_counter() - t0)
+        if dev_ == device:
+            t0 = time.perf_counter()
+            solo = [run_diffusive(d, s, nts * DT, DT,
+                                  corrector_mode="jacobi")
+                    for d, s in zip(doms, sts)]
+            torch.cuda.synchronize()
+            t_solo = time.perf_counter() - t0
+            for k, (fin_k, saves_k) in enumerate(solo):
+                v = doms[k].valid.cpu().numpy()
+                for sb, sk in zip(saves, saves_k):
+                    for i in (1, 2):
+                        g = sb[i][k].cpu().numpy()[v]
+                        w = sk[i].cpu().numpy()[v]
+                        if not np.allclose(g, w, rtol=1e-12, atol=0):
+                            raise AssertionError(
+                                f"batched tree {k} differs from its solo run")
+    (bdom, _, saves_c, t_card), (_, _, saves_h, t_cpu) = (out[device],
+                                                           out["cpu"])
+    v = bdom.valid.cpu().numpy()
+    card = (np.concatenate([s[1].cpu().numpy()[v] for s in saves_c]),
+            np.concatenate([s[2].cpu().numpy()[v] for s in saves_c]))
+    cpu = (np.concatenate([s[1].numpy()[v] for s in saves_h]),
+           np.concatenate([s[2].numpy()[v] for s in saves_h]))
+    bar = _diffusive_bars(tuple(a.astype(np.float64) for a in card),
+                          tuple(a.astype(np.float64) for a in cpu),
+                          "float32", "phase 10 batched")
+    log(f"phase 10: batched [{b}, {r}, {c}] f32 Jacobi uniform-128, {nts} "
+        f"steps: one call on the card {t_card:.2f} s, {b} solo calls "
+        f"{t_solo:.2f} s: every "
+        f"save of every tree equal to its solo run (rtol 1e-12); card vs "
+        f"cpu: {bar} (cpu {t_cpu:.2f} s)  [{smi}]")
+    return dict(card_s=t_card, solo_s=t_solo)
+
+
 def foreign_modules() -> list[str]:
     """Modules of JAX, of the JAX package or of its ``bench.py`` that this
     process has imported."""
@@ -1667,6 +2155,15 @@ def main() -> int:
     ap.add_argument("--baseline", type=Path, default=None,
                     help="earlier checkout whose B1 and B2 are timed in "
                          "turns with this one's")
+    ap.add_argument("--diffusive-steps", type=int, default=0,
+                    help="routing steps of every phase-10 timed run (the "
+                         "default times 24 for the uniform-table leg and 6 "
+                         "for the others, to keep the script within its "
+                         "time limit)")
+    ap.add_argument("--phases", default="2-10",
+                    help="phases to run after phase 1, as a range or a "
+                         "comma list (e.g. 9,10); the default runs all, "
+                         "and only a full run prints the result lines")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1676,6 +2173,11 @@ def main() -> int:
         print("chip_smoke: run from the root of a troute checkout",
               file=sys.stderr)
         return 1
+    phases = set()
+    for part in opts.phases.split(","):
+        lo, _, hi = part.partition("-")
+        phases.update(range(int(lo), int(hi or lo) + 1))
+    full = phases >= set(range(2, 11))
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     device = "cuda:0"
     torch.cuda.set_device(device)
@@ -1683,22 +2185,44 @@ def main() -> int:
     dev = phase_device(device)
     baseline = None if opts.baseline is None else Baseline(
         opts.baseline / "troute_torch" / "csrc" / "mc_secant.cu")
-    r = phase_kernel_vs_plain(device, dev, n32=N_CONUS, n64=1_000_000,
-                              baseline=baseline)
-    phase_engine_card_vs_cpu(device, n=200_000, nts=24)
-    m = phase_main_path(device, dev, n=N_CONUS, nts=24, baseline=baseline)
-    phase_skip_vs_plain(device, n32=N_CONUS, n64=1_000_000)
-    phase_strict_card_vs_cpu(device, n=50_000, nts=6)
-    s = phase_strict_main_path(device, dev, m["setup"], baseline=baseline)
-    del m["setup"]
-    torch.cuda.empty_cache()
-    c = phase_cli(dev, n_full=N_CONUS, n_small=100_000, n_strict=25_000)
+    if 2 in phases:
+        r = phase_kernel_vs_plain(device, dev, n32=N_CONUS, n64=1_000_000,
+                                  baseline=baseline)
+    if 3 in phases:
+        phase_engine_card_vs_cpu(device, n=100_000, nts=24)
+    if phases & {4, 7}:
+        m = phase_main_path(device, dev, n=N_CONUS, nts=24,
+                            baseline=baseline)
+    if 5 in phases:
+        phase_skip_vs_plain(device, n32=N_CONUS, n64=1_000_000)
+    if 6 in phases:
+        phase_strict_card_vs_cpu(device, n=25_000, nts=6)
+    if 7 in phases:
+        s = phase_strict_main_path(device, dev, m["setup"],
+                                   baseline=baseline)
+    if phases & {4, 7}:
+        del m["setup"]
+        torch.cuda.empty_cache()
+    if 8 in phases:
+        c = phase_cli(dev, n_full=N_CONUS, n_small=50_000, n_strict=25_000)
     if opts.baseline is not None:
         main_path_turns(opts.baseline, n=N_CONUS, nts=24, smi=dev["smi"])
+    if 9 in phases:
+        lv = phase_level_scan(device, dev, n=N_REGION, n_basins=N_BASINS,
+                              nts=24, nts_cpu=2, n_cli=25_000,
+                              cli_basins=100)
+        torch.cuda.empty_cache()
+    if 10 in phases:
+        d = phase_diffusive(device, dev, r=2048, c=16, nts=24, r_cpu=256,
+                            nts_cmp=4, batch=8,
+                            timed_steps=opts.diffusive_steps)
     if foreign_modules():
         raise AssertionError(f"the port's run imported {foreign_modules()}")
     log(f"total {time.perf_counter() - t_start:.1f} s; imported nothing of "
         f"JAX, troute_tpu or bench.py")
+    if not full:
+        log(f"phases {sorted(phases)} only: no result lines")
+        return 0
     src = "troute_torch/csrc/mc_secant.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "trips_mean",
             "trips_max", "evals_mean")
@@ -1706,29 +2230,35 @@ def main() -> int:
         {"name": "mc_secant", "route": "cuda", "source": src,
          "replaces": "troute_tpu/ops/muskingum_pallas.py:42",
          "launches": m["launches"] + s["launches"]["mc_secant"]
-         + c["launches"]["mc_secant"],
+         + c["launches"]["mc_secant"] + lv["launches"],
          "launches_by_path": {"phase 4": m["launches"],
                               "phase 7": s["launches"]["mc_secant"],
-                              "phase 8": c["launches"]["mc_secant"]},
+                              "phase 8": c["launches"]["mc_secant"],
+                              "phase 9": lv["launches"]},
          "max_abs_err": max(m["max_abs"], r["max_abs"]),
          **{k: m[k] for k in keys}, "library_ms": None,
          "floor_ms": m["floor_ms"], "baseline_ms": m["baseline_ms"],
          "conus_ranges": {k: r[k] for k in keys + ("floor_ms",
-                                                   "baseline_ms")}},
+                                                   "baseline_ms")},
+         "level_scan": {k: lv[k] for k in ("rows", "ms_step",
+                                           "launches_step",
+                                           "b1_ms_per_launch", "idle")}},
         {"name": "mc_secant_skip", "route": "cuda", "source": src,
          "replaces": "troute_tpu/ops/muskingum_pallas.py:51",
          "launches": m["skip_launches"] + s["launches"]["mc_secant_skip"]
          + c["launches"]["mc_secant_skip"],
          "launches_by_path": {"phase 4": m["skip_launches"],
                               "phase 7": s["launches"]["mc_secant_skip"],
-                              "phase 8": c["launches"]["mc_secant_skip"]},
+                              "phase 8": c["launches"]["mc_secant_skip"],
+                              "phase 9": 0},
          "max_abs_err": s["max_abs"], **{k: s[k] for k in keys},
          "library_ms": None, "floor_ms": s["floor_ms"],
          "baseline_ms": s["baseline_ms"],
          "b1_ms_same_inputs": s["b1_ms"],
          "active_blocks": s["active_blocks"]}],
         "cli": {k: c[k] for k in ("task_times", "route_seg_ts_s",
-                                  "command_seg_ts_s", "stages")}}))
+                                  "command_seg_ts_s", "stages")},
+        "diffusive": d}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -472,10 +472,37 @@ def test_strict_iterative_matches(geopackage_bases):
             strict=True)
 
 
+def test_level_scan_default_compute_matches(geopackage_bases):
+    """The schema's default compute parameters (``assume_short_ts`` and
+    ``strict_iterative`` left out, both False): the level scan of
+    ``route()`` in both packages, from the warm state of a short run set
+    as in ``test_strict_iterative_matches``."""
+    bases, dom = geopackage_bases
+    warm = _geopackage_cfg(dom["ids"])
+    warm["compute_parameters"]["forcing_parameters"]["nts"] = 12
+    warm["output_parameters"] = {
+        "lite_restart": {"lite_restart_output_directory": "warm_ls"}}
+    run_both(warm, *bases, name="warm_ls.yaml")
+    cfg = _geopackage_cfg(dom["ids"], return_courant=True, restart_parameters={
+        "start_datetime": "2021-08-23_14:00",
+        "lite_channel_restart_file": "warm_ls/channel_restart_202108231400",
+        "lite_waterbody_restart_file":
+            "warm_ls/waterbody_restart_202108231400"})
+    del cfg["compute_parameters"]["assume_short_ts"]
+    cfg["compute_parameters"]["forcing_parameters"].update(nts=6,
+                                                           qts_subdivisions=6)
+    cfg["output_parameters"] = {
+        "csv_output": {"csv_output_folder": "level_scan"}}
+    got, want = run_both(cfg, *bases, name="level_scan.yaml")
+    assert_results_match(got, want, strict=True)
+    assert got["fvd"].shape == (6, dom["ids"].size, 3)
+    f32_bar(got["courant"], want["courant"], strict=True)
+    assert_files_match(got["written"], want["written"], strict=True)
+
+
 # ------------------------------------------------------------ (e), (f)
 
 @pytest.mark.parametrize("change, item", [
-    ({"assume_short_ts": False}, "A14"),
     ({"hybrid_parameters": {"run_hybrid_routing": True,
                             "diffusive_domain": "domain/diffusive.yaml"}},
      "A10/A11"),

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: kernels B1 and B2 against their
-plain versions on the GPU, the wrapper's launch accounting and checks, and
-the engine (short and strict modes) on the card against the engine on the
+plain versions on the GPU, the wrapper's launch accounting and checks, the
+engine (short and strict modes, ``route()``'s level scan) and the
+diffusive solver (four configurations, a batch) on the card against the
 CPU.
 
 Run on a machine with a CUDA GPU and nvcc:
@@ -25,6 +26,13 @@ state put 30 of this case's 60,000 f32 values past rtol/atol 1e-4 (max
 rel 9.3e-4), flows among them.  From a cold random start even f64 lanes
 jump: the JAX package and the port on the CPU reach fixed points 0.071
 apart on 28 of 60,000 values, as the card and the CPU do.
+
+The level scan and the diffusive solver are held to ``chip_smoke.py``'s
+phase 9 and 10 bars (its helpers run them): the level scan from a warm
+state, f64 rtol 1e-9 on all but 1e-5 of the values, f32 the strict f32
+bar; the diffusive solver f64 rtol 1e-9 on all but 1e-5 of the values,
+f32 the f32 bar on flows and surfaces within 1e-3 m, a batch equal to its
+solo runs to rtol 1e-12.
 """
 
 import numpy as np
@@ -378,3 +386,46 @@ def test_strict_card_matches_cpu_and_counts(cuda, dtype, gs, monkeypatch):
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-8)
     else:
         _assert_f32_bar(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_level_scan_card_matches_cpu(cuda, dtype):
+    """``route()``'s level scan on a small regional network with
+    reservoirs and gages, from a warm state: B1 launched once per level
+    row per step, and the card against the CPU at ``chip_smoke.py``'s
+    phase 9 bars."""
+    from chip_smoke import (_network, _route, _run_values, _state_dict,
+                            _warm_state, check_f64_network,
+                            check_strict_f32, regional_network)
+    case = _network(4000, n_res=20, n_gage=20, seed=9,
+                    conn=regional_network(4000, 40, seed=9))
+    start = _state_dict(_warm_state("cpu", dtype, case))
+    before = muskingum_cuda.LAUNCHES
+    card = _route(cuda, dtype, case, 4, levels=True, start=start)
+    rows = int(card["net"].level_nodes.shape[0])
+    assert muskingum_cuda.LAUNCHES - before == card["mc_calls"] == 4 * rows
+    cpu = _route("cpu", dtype, case, 4, levels=True, start=start)
+    got, want = _run_values(card), _run_values(cpu)
+    if dtype == torch.float64:
+        check_f64_network(got, want, "level scan f64")
+    else:
+        check_strict_f32(got, want, "level scan f32")
+
+
+@pytest.mark.parametrize("dtype, mode, nel", [
+    ("float32", "jacobi", 128), ("float32", "jacobi", None),
+    ("float64", "jacobi", None), ("float64", "wavefront", None)])
+def test_diffusive_card_matches_cpu(cuda, dtype, mode, nel):
+    """The diffusive solver on a small mainstem tree (R=32, C=16, 4 steps),
+    card against CPU at ``chip_smoke.py``'s phase 10 bars."""
+    from chip_smoke import (_diffusive_bars, _diffusive_run,
+                            _diffusive_values)
+    runs = [_diffusive_run(d, getattr(torch, dtype), mode, nel, 32, 16, 4)
+            for d in (cuda, "cpu")]
+    _diffusive_bars(*[_diffusive_values(r[0], r[3]) for r in runs], dtype,
+                    f"diffusive {dtype} {mode} {nel}")
+
+
+def test_diffusive_batched_on_card_matches_solo(cuda):
+    from chip_smoke import _diffusive_batched
+    _diffusive_batched(cuda, 3, 16, 16, 4, "card test")

@@ -272,10 +272,11 @@ def test_reservoir_da_inactive_matches_jax(dtype):
 
 
 def test_strict_mode_not_ported():
-    """The level-scan strict form is ``route()``'s, not ported yet (ROADMAP
-    A14): ``route_stepped`` refuses it, as the JAX driver does; the strict
+    """The level-scan strict form is ``route()``'s
+    (``tests/test_torch_route.py``): ``route_stepped`` refuses it and
+    names ``route()``, as the JAX driver refuses it; the strict
     fixed-point form is tested in ``test_torch_strict.py``."""
     cfg = teng.RoutingConfig(dt=DT, nts=2, assume_short_ts=False)
     z = torch.zeros(1, dtype=torch.float64)
-    with pytest.raises(ValueError, match="A14"):
+    with pytest.raises(ValueError, match=r"route\(\)"):
         teng.route_stepped(None, None, None, cfg, z, z, z, z[None])

@@ -78,7 +78,8 @@ for name in ("cli", "__main__", "config.schema", "io.netcdf", "io.output",
              "io.restart", "io.forcing", "io.routelink", "io.timeslice",
              "io.rfc", "network.builder", "network.graph",
              "network.hyfeatures", "network.gl_constants",
-             "network.rfc_crosswalk", "da_assembly", "parity"):
+             "network.rfc_crosswalk", "da_assembly", "parity",
+             "diffusive.xsection", "diffusive.solver", "diffusive.domain"):
     assert "troute_torch." + name in names, name
 from troute_torch.io.netcdf import NetCDFFile
 try:
@@ -88,15 +89,30 @@ except ImportError as e:
 else:
     raise AssertionError("a NetCDF read without h5py did not raise")
 import chip_smoke
+from troute_torch.diffusive import domain as ddom, solver as dsol
+from troute_torch.synthetic import mainstem_tree
+dd = ddom.build_domain(*mainstem_tree(3, 4, nts=2), device="cpu",
+                       nel_uniform=16)
+dst = dsol.initialize_state(dd, torch.full((3, 4), 30.0, dtype=torch.float64),
+                            30.0, corrector_mode="jacobi")
+dst, saves = dsol.run_diffusive(dd, dst, 600.0, 300.0,
+                                corrector_mode="jacobi")
+assert len(saves) == 2 and bool(torch.isfinite(dst.y).all())
 """ + _PROBE.split("import troute_torch", 1)[1].replace(
     'print("jax" in sys.modules, any(m.startswith("jax.") for m in sys.modules))',
+    'levels = engine.route(engine.network_arrays_from_topology(\n'
+    '    topo, device="cpu", need_levels=True), chan, lp,\n'
+    '    cfg._replace(assume_short_ts=False), q0, 0.1 * q0,\n'
+    '    torch.zeros(1, dtype=f64), torch.full((1, n), 0.5, dtype=f64))\n'
+    'assert levels["mc_calls"] == 3 * topo.n_levels\n'
     'print("FOREIGN", chip_smoke.foreign_modules())')
 
 
 def test_port_imports_nothing_of_the_jax_package():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     process from which ``h5py`` is hidden, and which then routes a tiny
-    network on the CPU: every module imports without ``h5py`` (a NetCDF
+    network on the CPU (short steps and the level scan) and a tiny
+    diffusive domain: every module imports without ``h5py`` (a NetCDF
     read then raises an ``ImportError`` that names it), and no module of
     JAX, of ``troute_tpu`` or ``bench`` is loaded."""
     env = {k: v for k, v in os.environ.items()
@@ -114,5 +130,7 @@ def test_no_source_of_the_port_imports_the_jax_side(name):
     files = sorted((REPO / "troute_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"solver.py", "domain.py", "xsection.py"} <= {
+        f.name for f in files if f.parent.name == "diffusive"}
     for f in files:
         assert not pat.search(f.read_text()), f

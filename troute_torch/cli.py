@@ -12,11 +12,13 @@ device nor ``--cpu`` it raises; it never picks the CPU by itself.  Both
 ``assume_short_ts: True`` and ``strict_iterative: True`` go through
 ``route_stepped`` whatever ``compute_kernel`` says (the stepped engine
 takes the MC kernels for CUDA tensors and their plain versions for CPU
-tensors).  Tensors are made once per run on that device in float32; the
+tensors); the schema's default, ``assume_short_ts: False`` without
+``strict_iterative``, goes through ``route()``'s level scan, as in the JAX
+CLI.  Tensors are made once per run on that device in float32; the
 state handed from run set to run set stays there, and flows, nudges and
-Courant numbers come to the host once per run set.  Three branches of the
+Courant numbers come to the host once per run set.  Two branches of the
 JAX CLI wait and raise ``NotImplementedError`` naming their ROADMAP item:
-the level-scan strict form (A14), hybrid diffusive routing (A10/A11) and
+hybrid diffusive routing (A11; the solver itself, A10, is ported) and
 ``parallel_compute_method: sharded`` (A13).
 """
 
@@ -433,7 +435,7 @@ def main_v04(argv=None) -> dict:
     from troute_torch.network.builder import build_network
     from troute_torch.ops.levelpool import LevelpoolParams
     from troute_torch.routing.engine import (
-        ChannelParams, RoutingConfig, network_arrays_from_topology,
+        ChannelParams, RoutingConfig, network_arrays_from_topology, route,
         route_stepped)
 
     parser = argparse.ArgumentParser(prog="troute_torch")
@@ -489,17 +491,13 @@ def main_v04(argv=None) -> dict:
     strict_iterative = bool(getattr(comp, "strict_iterative", False))
     if comp.hybrid_parameters.run_hybrid_routing:
         raise NotImplementedError(
-            "run_hybrid_routing: the diffusive mainstem solver and its "
-            "coupling are not ported yet (ROADMAP A10/A11)")
+            "run_hybrid_routing: the coupling of the diffusive mainstem "
+            "solver to MC routing is not ported yet (ROADMAP A10/A11: the "
+            "solver, A10, is ported; the coupling, A11, is not)")
     if str(comp.parallel_compute_method or "") == "sharded":
         raise NotImplementedError(
             "parallel_compute_method: sharded: routing across several "
             "GPUs is not ported yet (ROADMAP A13)")
-    if not comp.assume_short_ts and not strict_iterative:
-        raise NotImplementedError(
-            "assume_short_ts: False without strict_iterative: the "
-            "level-scan strict form of route() is not ported yet (ROADMAP "
-            "A14); set strict_iterative: True for the fixed-point form")
     built = build_network(cfg, base)
     pp = cfg.network_topology_parameters.preprocessing_parameters
     if pp and pp.preprocess_only:
@@ -511,7 +509,11 @@ def main_v04(argv=None) -> dict:
                 "task_times": task_times, "written": [], "parity": None,
                 "courant": None, "diffusive": None, "final_state": None}
     topo = built.topo
-    net = network_arrays_from_topology(topo, device=device)
+    # the level-scan strict form needs the wavefront schedule; short-ts
+    # and the fixed-point strict form don't
+    level_scan = not comp.assume_short_ts and not strict_iterative
+    net = network_arrays_from_topology(topo, device=device,
+                                       need_levels=level_scan)
     dtype = torch.float32
     cp = ChannelParams.from_arrays(device=device, dtype=dtype, **built.chan)
     lp = LevelpoolParams.from_array(built.res_params, device=device,
@@ -656,7 +658,8 @@ def main_v04(argv=None) -> dict:
                 month_idx=res_da.month_idx[step_offset:])
         t_start = time.time()
         # compute_kernel ("auto", "pallas", "tpu", "xla", ...) selects
-        # nothing here: the stepped engine is the port's one MC engine
+        # nothing here: short and fixed-point steps take route_stepped,
+        # the level scan route()
         rcfg = RoutingConfig(
             dt=dt, nts=run["nts"], qts_subdivisions=qts,
             assume_short_ts=comp.assume_short_ts,
@@ -667,8 +670,9 @@ def main_v04(argv=None) -> dict:
             strict_accel_lin=int(getattr(comp, "strict_accel_lin", 8)),
             strict_accel_chunk=int(getattr(comp, "strict_accel_chunk", 8)),
             strict_block_skip=getattr(comp, "strict_block_skip", "auto"))
-        out = route_stepped(net, cp, lp, rcfg, q0, d0, elev0,
-                            _tensor(ql, dtype, device), set_da, set_res_da)
+        out = (route if level_scan else route_stepped)(
+            net, cp, lp, rcfg, q0, d0, elev0, _tensor(ql, dtype, device),
+            set_da, set_res_da)
         state = out["state"]
         q0, d0, elev0 = state.q, state.depth, state.res_elev
         set_seconds = run["nts"] * dt

@@ -16,6 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from troute_torch.diffusive.solver import DiffusiveDomain, DiffusiveState
 from troute_torch.ops.levelpool import LevelpoolParams
 from troute_torch.ops.reservoir_da import (
     GreatLakesDAState, HybridDAState, RfcDAState)
@@ -51,7 +52,8 @@ def from_levelpool_params(lp, *, device, dtype) -> LevelpoolParams:
 
 
 def from_network_arrays(net, *, device) -> NetworkArrays:
-    """The JAX ``NetworkArrays``, its banded ``UpstreamOp`` included."""
+    """The JAX ``NetworkArrays``, its banded ``UpstreamOp`` and level
+    schedule included."""
     uplan = None
     if net.uplan is not None:
         uplan = UpstreamOp(
@@ -63,7 +65,9 @@ def from_network_arrays(net, *, device) -> NetworkArrays:
         upstream=_index(net.upstream, device=device),
         is_reservoir=_t(net.is_reservoir, device=device),
         res_rows=_index(net.res_rows, device=device),
-        uplan=uplan)
+        uplan=uplan,
+        level_nodes=(None if net.level_nodes is None
+                     else _index(net.level_nodes, device=device)))
 
 
 def from_gage_da(da, *, device, dtype) -> GageDA:
@@ -112,6 +116,25 @@ def from_routing_state(s, *, device, dtype) -> RoutingState:
         hybrid=None if s.hybrid is None else from_hybrid_state(s.hybrid, **kw),
         rfc=None if s.rfc is None else from_rfc_state(s.rfc, **kw),
         gl=None if s.gl is None else from_gl_state(s.gl, **kw))
+
+
+def from_diffusive_domain(dom, *, device, dtype) -> DiffusiveDomain:
+    """The JAX ``DiffusiveDomain``: arrays as tensors (None stays None),
+    the series timesteps as floats."""
+    vals = {}
+    for f in DiffusiveDomain._fields:
+        v = getattr(dom, f)
+        if v is None or isinstance(v, (int, float)):
+            vals[f] = None if v is None else float(v)
+        elif np.asarray(v).dtype.kind in "iu":
+            vals[f] = _index(v, device=device)
+        else:
+            vals[f] = _t(v, device=device, dtype=dtype)
+    return DiffusiveDomain(**vals)
+
+
+def from_diffusive_state(st, *, device, dtype) -> DiffusiveState:
+    return _fields(DiffusiveState, st, device=device, dtype=dtype)
 
 
 def to_numpy(x: Any) -> Any:

@@ -4,9 +4,9 @@ A copy, read and trimmed, of the NumPy topology code of
 ``troute_tpu/network/topology.py``: the port imports nothing of the JAX
 package.  The network is preprocessed once on the host into columnar
 arrays: per-node padded upstream row lists, a wavefront level per node
-(longest path from a headwater), and a node type.  The strict level-scan
-schedule (``level_nodes``, ``level_chunks``) and ``from_connections`` are
-not ported.
+(longest path from a headwater), and a node type; and the level-scan
+schedule of ``route()`` (``level_nodes``, ``level_chunks``).
+``from_connections`` is not ported.
 
 Host preprocessing runs the port's native functions
 (``troute_torch/native.py``) when they build and the NumPy fallbacks
@@ -66,6 +66,45 @@ class RoutingTopology:
     @cached_property
     def reservoir_rows(self) -> np.ndarray:
         return np.flatnonzero(self.node_type == NODE_RESERVOIR).astype(np.int32)
+
+    @cached_property
+    def level_nodes(self) -> np.ndarray:
+        """[n_levels, widest level] rows grouped by level in ascending row
+        order, -1 padded: the level scan's schedule."""
+        order = np.argsort(self.level, kind="stable")
+        counts = np.bincount(self.level, minlength=self.n_levels)
+        width = int(counts.max()) if counts.size else 0
+        out = np.full((self.n_levels, width), -1, np.int32)
+        start = 0
+        for lvl, c in enumerate(counts):
+            out[lvl, :c] = order[start:start + c]
+            start += c
+        return out
+
+    def level_chunks(self, width: int) -> np.ndarray:
+        """[n_chunks, width] rows, -1 padded, in level order; a chunk never
+        spans two levels.  Nodes of one level are independent, so a level
+        split over consecutive rows keeps the level scan's results, and
+        the schedule costs O(N + n_levels x width) instead of O(n_levels x
+        widest level).  The JAX package rounds ``width`` to the TPU's
+        128-lane vector; any width will do here."""
+        order = np.argsort(self.level, kind="stable")
+        counts = np.bincount(self.level, minlength=self.n_levels)
+        if counts.size:
+            width = min(width, int(counts.max()))
+        width = max(int(width), 1)
+        chunks = []
+        start = 0
+        for c in counts:
+            for off in range(0, int(c), width):
+                chunk = order[start + off:start + min(off + width, c)]
+                row = np.full(width, -1, np.int32)
+                row[:chunk.size] = chunk
+                chunks.append(row)
+            start += c
+        if not chunks:
+            return np.full((1, width), -1, np.int32)
+        return np.stack(chunks)
 
 
 def build_topology(ids: Sequence[int], downstream_ids: Sequence[int],

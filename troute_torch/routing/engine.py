@@ -1,7 +1,7 @@
-"""Host-stepped Muskingum-Cunge routing engine in PyTorch.
+"""Muskingum-Cunge routing engine in PyTorch.
 
-Port of ``route_stepped`` of ``troute_tpu/routing/engine.py`` in its two
-modes:
+Port of ``route`` and ``route_stepped`` of ``troute_tpu/routing/engine.py``.
+Each timestep runs in one of three forms:
 
 * short timestep (``assume_short_ts=True``, the NWM production mode):
   every node's state at timestep t depends only on the state at t-1, so
@@ -11,10 +11,16 @@ modes:
   level-pool reservoirs with optional typed reservoir DA, gage nudging;
 * strict fixed point (``assume_short_ts=False, strict_iterative=True``):
   the current-step upstream flow couples nodes within a timestep, and each
-  timestep iterates that step as Jacobi sweeps (with the linear
-  accelerator and the block-skip kernel as options) or Gauss-Seidel
-  column sweeps, polled from the host in chunks until the iterate stops
-  moving.
+  timestep iterates that step as Jacobi sweeps until the iterate stops
+  moving.  ``route_stepped`` polls chunks of sweeps from the host (with
+  the linear accelerator, the block-skip kernel or Gauss-Seidel column
+  sweeps as options); ``route`` runs the JAX ``route()``'s while loop,
+  one poll per sweep, then one commit sweep;
+* strict level scan (``assume_short_ts=False, strict_iterative=False``,
+  ``route`` only): the reference's own within-step order.  The rows of
+  one wavefront level (``NetworkArrays.level_nodes``) are solved together
+  once every lower level is final; reservoirs and gages of a level are
+  dispatched and nudged before the next level reads them.
 
 Semantics follow ``mc_reach.pyx``: qup = sum of upstream flows at t-1, quc
 the same sum at t (at t-1 in short mode); lateral inflow column (t-1) //
@@ -22,10 +28,9 @@ qts_subdivisions; reservoirs receive the quc sum as inflow, with previous
 inflow = current inflow (``bind_lp.f90:71-72``); nudging follows
 ``simple_da.pyx:21-89``.
 
-The in-scan ``route()`` and its level-scan strict form are not ported yet
-(ROADMAP A14).  Every tensor of one call lies on one device in one float
-dtype, which the caller picks; functions that build tensors take
-``device`` and ``dtype`` explicitly.
+Every tensor of one call lies on one device in one float dtype, which the
+caller picks; functions that build tensors take ``device`` and ``dtype``
+explicitly.
 """
 
 from __future__ import annotations
@@ -73,6 +78,8 @@ class NetworkArrays(NamedTuple):
     is_reservoir: torch.Tensor    # bool [N]
     res_rows: torch.Tensor        # int64 [n_res] node rows of reservoirs
     uplan: UpstreamOp | None = None   # banded plan; None: gather form
+    # int64 [n_rows, W] level-scan schedule, -1 padded (None: no level scan)
+    level_nodes: torch.Tensor | None = None
 
 
 class GageDA(NamedTuple):
@@ -183,10 +190,20 @@ class RoutingState(NamedTuple):
     gl: GreatLakesDAState | None = None
 
 
-def network_arrays_from_topology(topo, *, device) -> NetworkArrays:
+def network_arrays_from_topology(topo, *, device, need_levels: bool = False,
+                                 level_chunk_width: int | None = None
+                                 ) -> NetworkArrays:
     """Index tensors of a ``RoutingTopology`` on ``device``, with the
     banded upstream-sum plan for the padded length when the row order
-    allows one (``routing/upstream_plan.py``); else the gather form."""
+    allows one (``routing/upstream_plan.py``); else the gather form.
+    ``need_levels`` adds the level scan's schedule: one row per level, or
+    rows of at most ``level_chunk_width`` nodes when it is given."""
+    levels = None
+    if need_levels:
+        levels = torch.as_tensor(
+            topo.level_nodes if level_chunk_width is None
+            else topo.level_chunks(level_chunk_width),
+            dtype=torch.int64, device=device)
     upstream = np.asarray(topo.upstream)
     uop = None
     n_pad = -(-topo.n_nodes // PAD_MULTIPLE) * PAD_MULTIPLE
@@ -200,7 +217,7 @@ def network_arrays_from_topology(topo, *, device) -> NetworkArrays:
                                      device=device),
         res_rows=torch.as_tensor(topo.reservoir_rows, dtype=torch.int64,
                                  device=device),
-        uplan=uop)
+        uplan=uop, level_nodes=levels)
 
 
 def _upstream_sum(q: torch.Tensor, upstream: torch.Tensor) -> torch.Tensor:
@@ -221,14 +238,13 @@ def _upstream_sum_stepped(q, upstream, uplan):
     return _upstream_sum(q, upstream)
 
 
-def _apply_nudging(q, t_seconds: float, da: GageDA, lastobs_val,
-                   lastobs_time, obs_t):
-    """Vectorized ``simple_da`` (reference ``simple_da.pyx:21-89``)."""
-    model = q[da.rows]
+def _nudge(model, t_seconds: float, decay_coeff: float, lastobs_val,
+           lastobs_time, obs_t):
+    """``simple_da`` on gage lanes (reference ``simple_da.pyx:21-89``):
+    (nudged flow, nudge, new last obs value, new last obs time)."""
     have_obs = ~torch.isnan(obs_t)
-
     minutes = (t_seconds - lastobs_time) / 60.0
-    weight = torch.exp(torch.abs(minutes) / -da.decay_coeff)
+    weight = torch.exp(torch.abs(minutes) / -decay_coeff)
     shift = (lastobs_val - model) * weight
     no_memory = torch.isnan(obs_t) & torch.isnan(lastobs_val)
 
@@ -238,7 +254,15 @@ def _apply_nudging(q, t_seconds: float, da: GageDA, lastobs_val,
                         torch.where(no_memory, 0.0, shift))
     new_val = torch.where(have_obs, obs_t, lastobs_val)
     new_time = torch.where(have_obs, t_seconds, lastobs_time)
+    return replaced, nudge, new_val, new_time
 
+
+def _apply_nudging(q, t_seconds: float, da: GageDA, lastobs_val,
+                   lastobs_time, obs_t):
+    """Vectorized ``simple_da`` over all gages of ``da``."""
+    replaced, nudge, new_val, new_time = _nudge(
+        q[da.rows], t_seconds, da.decay_coeff, lastobs_val, lastobs_time,
+        obs_t)
     q = q.index_put((da.rows,), replaced)
     return q, nudge, new_val, new_time
 
@@ -314,6 +338,27 @@ def apply_linear_accel(q_new, dq, gain, sum_fn, n_terms: int):
     return torch.clamp_min(acc, 0.0)
 
 
+def _reservoirs(res_params: LevelpoolParams, res_da, res_elev, inflow,
+                da_states, t_seconds: float, month_i, dt: float):
+    """Level pool, then the typed reservoir DA when ``res_da`` is given
+    (``mc_reach.pyx:507-717``), on reservoir lanes that see ``inflow``:
+    (outflow, elevation, the depth column's value, DA states)."""
+    lp_out, lp_elev = levelpool_step(res_elev, inflow, inflow,
+                                     torch.zeros_like(inflow), dt, res_params)
+    if res_da is None:
+        return lp_out, lp_elev, lp_elev, da_states
+    hyb_s, rfc_s, gl_s = da_states
+    outflow, elev, d_scat, hyb_s, rfc_s, gl_s = typed_reservoir_dispatch(
+        res_da.wbody_type, res_da.hybrid_obs, res_da.hybrid_obs_time, hyb_s,
+        res_da.rfc_series, res_da.rfc_counts, res_da.rfc_use,
+        res_da.rfc_timestep, res_da.rfc_persist_seconds, rfc_s,
+        res_da.gl_obs, res_da.gl_obs_time, res_da.gl_climatology, gl_s,
+        res_da.obs_lookback_hours, res_elev, inflow, lp_out, lp_elev,
+        t_seconds, month_i, res_params.area, res_params.max_depth,
+        res_params.orifice_elev, dt)
+    return outflow, elev, d_scat, (hyb_s, rfc_s, gl_s)
+
+
 def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
                     t_seconds: float, upstream, chan: ChannelParams,
                     res_params: LevelpoolParams, is_res, res_rows,
@@ -350,25 +395,9 @@ def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
     d_new = torch.where(is_res, depth, out.depthc)
 
     if res_rows.shape[0]:
-        inflow = quc[res_rows]
-        lp_out, lp_elev = levelpool_step(res_elev, inflow, inflow,
-                                         torch.zeros_like(inflow), dt,
-                                         res_params)
-        if res_da is not None:
-            hyb_s, rfc_s, gl_s = da_states
-            outflow, elev, d_scat, hyb_s, rfc_s, gl_s = \
-                typed_reservoir_dispatch(
-                    res_da.wbody_type, res_da.hybrid_obs,
-                    res_da.hybrid_obs_time, hyb_s, res_da.rfc_series,
-                    res_da.rfc_counts, res_da.rfc_use, res_da.rfc_timestep,
-                    res_da.rfc_persist_seconds, rfc_s, res_da.gl_obs,
-                    res_da.gl_obs_time, res_da.gl_climatology, gl_s,
-                    res_da.obs_lookback_hours, res_elev, inflow, lp_out,
-                    lp_elev, t_seconds, month_i, res_params.area,
-                    res_params.max_depth, res_params.orifice_elev, dt)
-            da_states = (hyb_s, rfc_s, gl_s)
-        else:
-            outflow, elev, d_scat = lp_out, lp_elev, lp_elev
+        outflow, elev, d_scat, da_states = _reservoirs(
+            res_params, res_da, res_elev, quc[res_rows], da_states,
+            t_seconds, month_i, dt)
         q_new = q_new.index_put((res_rows,), outflow)
         d_new = d_new.index_put((res_rows,), d_scat)
         res_elev = elev
@@ -543,21 +572,8 @@ def _strict_gs_sweeps(q_est, g: _GSStep, res_elev, t_seconds: float,
             inflow = torch.where(g.up_res >= 0,
                                  q_old[torch.clamp_min(g.up_res, 0)],
                                  0.0).sum(dim=1)
-            lp_out, lp_elev = levelpool_step(res_elev, inflow, inflow,
-                                             torch.zeros_like(inflow), dt,
-                                             res_params)
-            outflow = lp_out
-            if res_da is not None:
-                hyb_s, rfc_s, gl_s = da_states
-                outflow = typed_reservoir_dispatch(
-                    res_da.wbody_type, res_da.hybrid_obs,
-                    res_da.hybrid_obs_time, hyb_s, res_da.rfc_series,
-                    res_da.rfc_counts, res_da.rfc_use, res_da.rfc_timestep,
-                    res_da.rfc_persist_seconds, rfc_s, res_da.gl_obs,
-                    res_da.gl_obs_time, res_da.gl_climatology, gl_s,
-                    res_da.obs_lookback_hours, res_elev, inflow, lp_out,
-                    lp_elev, t_seconds, month_i, res_params.area,
-                    res_params.max_depth, res_params.orifice_elev, dt)[0]
+            outflow = _reservoirs(res_params, res_da, res_elev, inflow,
+                                  da_states, t_seconds, month_i, dt)[0]
             overlay = _cols(q_old.new_zeros(n).index_put((res_rows,),
                                                          outflow), width)
         qx = torch.cat([q_old.new_zeros(lo), q_old])
@@ -580,15 +596,8 @@ def _strict_gs_sweeps(q_est, g: _GSStep, res_elev, t_seconds: float,
             col_q = torch.where(g.is_res[c], overlay[c] if n_res else g.q[c],
                                 out.qdc)
             if g.gmask is not None:
-                obs_c, lov_c = g.obs[c], g.lov[c]
-                minutes = (t_seconds - g.lot[c]) / 60.0
-                weight = torch.exp(torch.abs(minutes) / -decay_coeff)
-                shift_v = (lov_c - col_q) * weight
-                have_obs = ~torch.isnan(obs_c)
-                no_mem = torch.isnan(obs_c) & torch.isnan(lov_c)
-                replaced = torch.where(
-                    have_obs, obs_c,
-                    torch.where(no_mem, col_q, col_q + shift_v))
+                replaced = _nudge(col_q, t_seconds, decay_coeff, g.lov[c],
+                                  g.lot[c], g.obs[c])[0]
                 col_q = torch.where(g.gmask[c], replaced, col_q)
             cols.append(col_q)
         q_est = torch.stack(cols).t().reshape(n)
@@ -618,13 +627,55 @@ def route_stepped(net: NetworkArrays, chan: ChannelParams,
     ``cfg.strict_iterative`` runs the strict fixed-point form
     (``_route_strict``), which adds 'strict_sweeps' (sweeps per step) and
     'strict_mc_calls' (MC solves per kernel form) to the dict.  The
-    level-scan strict form lives in the JAX package's ``route()``.
+    level-scan strict form is ``route()``'s, as in the JAX package.
     """
     if not cfg.assume_short_ts and not cfg.strict_iterative:
         raise ValueError(
             "route_stepped supports short-timestep mode and the strict "
             "fixed-point mode (strict_iterative=True); the level-scan "
-            "strict form lives in route() (ROADMAP A14)")
+            "strict form is route()'s")
+    return _drive(_route_short if cfg.assume_short_ts else _route_strict,
+                  net, chan, res_params, cfg, q0, depth0, res_elev0, qlat,
+                  da, res_da, collect, month_clip=True)
+
+
+def route(net: NetworkArrays, chan: ChannelParams,
+          res_params: LevelpoolParams, cfg: RoutingConfig,
+          q0, depth0, res_elev0, qlat, da: GageDA | None = None,
+          res_da: ReservoirDAData | None = None):
+    """Route the network for ``cfg.nts`` steps: the JAX ``route()``, whose
+    ``lax.scan`` over steps becomes a host loop.
+
+    Inputs and the returned dict are ``route_stepped``'s (flows always
+    collected).  The step form follows the config as in the JAX package:
+    ``assume_short_ts`` the short step; else ``strict_iterative`` the
+    fixed-point while loop (``_route_strict_iter``; accelerator "auto" is
+    off here); else the level scan (``_route_levels``), which needs
+    ``net.level_nodes``.  The strict forms add 'mc_calls', the MC solves
+    made (on the card, each is one launch of kernel B1), and the
+    fixed-point form 'strict_sweeps' (sweeps per step, the commit sweep
+    not counted).
+    """
+    if cfg.assume_short_ts:
+        driver = _route_short
+    elif cfg.strict_iterative:
+        driver = _route_strict_iter
+    else:
+        if net.level_nodes is None:
+            raise ValueError("the level scan needs NetworkArrays.level_nodes "
+                             "(network_arrays_from_topology(..., "
+                             "need_levels=True))")
+        driver = _route_levels
+    return _drive(driver, net, chan, res_params, cfg, q0, depth0, res_elev0,
+                  qlat, da, res_da, True, month_clip=False)
+
+
+def _drive(driver, net, chan, res_params, cfg, q0, depth0, res_elev0, qlat,
+           da, res_da, collect, month_clip: bool):
+    """Pad the node axis to the banded plan's length, stage the DA inputs
+    and run ``driver`` over the steps.  ``month_clip``: a month table
+    shorter than the run clips to its last entry (the stepped drivers);
+    else every month is 0 (``route()``'s scan)."""
     device, dtype = q0.device, q0.dtype
     n_real = q0.shape[0]
     pad = (-n_real) % PAD_MULTIPLE
@@ -649,10 +700,13 @@ def route_stepped(net: NetworkArrays, chan: ChannelParams,
     # month per step, read on the host once instead of once per step
     month_host = (res_da.month_idx.cpu().numpy() if res_da is not None
                   else None)
+    if month_host is not None and not month_clip \
+            and month_host.shape[0] <= cfg.nts:
+        month_host = np.zeros(cfg.nts + 1, np.int64)
 
     def step_inputs(t: int):
-        """The row selection of the JAX stepped drivers: out-of-range qlat
-        columns clamp, obs rows past the table are NaN, month clips."""
+        """The row selection of the JAX drivers: out-of-range qlat columns
+        clamp, obs rows past the table are NaN."""
         col = min(max((t - 1) // cfg.qts_subdivisions, 0), qlat.shape[0] - 1)
         obs_t = da.obs[t] if have_da and t < n_obs_t else nan_obs
         month_i = (int(month_host[min(t, month_host.shape[0] - 1)])
@@ -662,10 +716,9 @@ def route_stepped(net: NetworkArrays, chan: ChannelParams,
     da_states = (None if res_da is None else
                  (res_da.hybrid_state0, res_da.rfc_state0,
                   res_da.gl_state0))
-    args = (net, chan, res_params, cfg, q0, depth0, res_elev0, lo_val,
-            lo_time, gage_rows, decay, res_da, da_states, step_inputs,
-            collect, n_real)
-    return (_route_short if cfg.assume_short_ts else _route_strict)(*args)
+    return driver(net, chan, res_params, cfg, q0, depth0, res_elev0, lo_val,
+                  lo_time, gage_rows, decay, res_da, da_states, step_inputs,
+                  collect, n_real)
 
 
 def _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time, da_states,
@@ -851,4 +904,277 @@ def _route_strict(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
                   da_states, collect, fvds, nudges, courants)
     out["strict_sweeps"] = sweep_counts
     out["strict_mc_calls"] = calls
+    return out
+
+
+def _route_strict_iter(net, chan, res_params, cfg, q, depth, res_elev,
+                       lo_val, lo_time, gage_rows, decay, res_da, da_states,
+                       step_inputs, collect, n_real) -> dict:
+    """``route()``'s fixed-point strict steps
+    (``troute_tpu/routing/engine.py:703-801``).
+
+    Each step sweeps from the previous step's flows: one Jacobi sweep
+    (``_one_short_step`` at the iterate's upstream sums), then the host
+    reads delta = max |dq| and qmax = max |q| (one transfer per sweep:
+    the JAX while loop tests its condition after every sweep, and an extra
+    sweep moves the iterate), until delta <= max(strict_tol, 4 eps qmax)
+    or ``strict_max_sweeps``.  With the accelerator on, a sweep whose
+    delta is above 4x that tolerance jumps by ``strict_accel_lin`` linear
+    terms.  One commit sweep at the converged iterate gives the step's
+    outputs and state.
+    """
+    dtype = q.dtype
+    real = _np_dtype(dtype)
+    eps4 = real(4.0) * real(torch.finfo(dtype).eps)
+    tol0 = real(cfg.strict_tol)
+    cap = int(cfg.strict_max_sweeps)
+    lin = (int(cfg.strict_accel_lin)
+           if _accel_enabled(cfg, stepped=False) else 0)
+    is_res = net.is_reservoir
+
+    def usum(v):
+        return _upstream_sum_stepped(v, net.upstream, net.uplan)
+
+    sweep_counts, mc_calls = [], 0
+    fvds, nudges, courants = [], [], []
+    for t in range(1, cfg.nts + 1):
+        ql_t, obs_t, month_i = step_inputs(t)
+        t_seconds = float(real(t) * real(cfg.dt))
+        step = (q, depth, res_elev, lo_val, lo_time, ql_t, obs_t, t_seconds,
+                net.upstream, chan, res_params, is_res, net.res_rows,
+                gage_rows, decay, cfg.dt)
+        kw = dict(res_da=res_da, da_states=da_states, month_i=month_i,
+                  uplan=net.uplan)
+        q_est, g_prev, u_prev = q, q, usum(q)
+        k, delta, qmax = 0, np.inf, real(0.0)
+        while k < cap and delta > max(tol0, eps4 * qmax):
+            quc = usum(q_est)
+            res_k = _one_short_step(*step, quc=quc, return_courant=lin > 0,
+                                    want_raw=True, **kw)
+            q_new, raw = res_k[0], res_k[-1]
+            dq = q_new - q_est
+            delta, qmax = torch.stack([torch.max(torch.abs(dq)),
+                                       torch.max(torch.abs(q_new))]).tolist()
+            delta, qmax = real(delta), real(qmax)
+            q_est = q_new
+            if lin and delta > real(4.0) * max(tol0, eps4 * qmax):
+                gain = accel_gain(raw.ck, raw.X, chan.dx, cfg.dt, q_new,
+                                  g_prev, quc, u_prev, emp_ok=k >= 1)
+                gain = torch.where(is_res, 0.0, gain)
+                if gage_rows.shape[0]:
+                    gain = gain.index_fill(0, gage_rows, 0.0)
+                q_est = apply_linear_accel(q_new, dq, gain, usum, lin)
+            g_prev, u_prev = q_new, quc
+            k += 1
+        (q, v, depth, res_elev, lo_val, lo_time, nudge, da_states,
+         courant) = _one_short_step(*step, quc=usum(q_est),
+                                    return_courant=cfg.return_courant, **kw)
+        sweep_counts.append(k)
+        mc_calls += k + 1
+        if collect:
+            fvds.append(torch.stack([q, v, depth], dim=-1)[:n_real])
+            nudges.append(nudge)
+            if cfg.return_courant:
+                courants.append(courant[:n_real])
+    out = _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
+                  da_states, collect, fvds, nudges, courants)
+    out["strict_sweeps"] = sweep_counts
+    out["mc_calls"] = mc_calls
+    return out
+
+
+_RES_DA_SHARED = ("hybrid_obs_time", "month_idx", "obs_lookback_hours",
+                  "hybrid_state0", "rfc_state0", "gl_state0")
+
+
+class _LevelRow(NamedTuple):
+    """One row of the level scan: lanes [start, end) of the level order,
+    and the reservoirs and gages it dispatches and nudges (None: none)."""
+
+    start: int
+    end: int
+    rows: torch.Tensor                  # node rows of the lanes
+    res_slots: torch.Tensor | None      # reservoir slots of this row
+    res_node_rows: torch.Tensor | None
+    res_pos: torch.Tensor | None        # their lanes in the level order
+    res_params: LevelpoolParams | None
+    res_da: ReservoirDAData | None
+    gages: torch.Tensor | None          # gage indices of this row
+
+
+def _level_rows(net: NetworkArrays, res_params, res_da, gage_rows, n: int,
+                device) -> tuple[torch.Tensor, list[_LevelRow]]:
+    """The level scan's lanes in schedule order and its rows, built once
+    per call in O(N) from ``net.level_nodes``: which reservoirs
+    and gages each row holds comes from one table of the row of each node
+    (the JAX package loops over gages x levels x width,
+    ``troute_tpu/routing/engine.py:446-464``).  Reservoirs and gages are
+    dispatched per row on their own lanes, where the JAX scan runs all of
+    them at every level and keeps the active ones: the per-lane results are
+    the same, since both are lane-wise, and a level without any costs no
+    launch."""
+    ln = net.level_nodes
+    valid = ln >= 0
+    # the schedule can be wide and mostly padding (a dense level matrix):
+    # only its row counts and the rows of reservoirs and gages come to the
+    # host
+    counts_t = valid.sum(dim=1)
+    keep = counts_t > 0
+    order_t = ln[valid]
+    counts_t = counts_t[keep]
+    row_idx = torch.arange(counts_t.shape[0], device=device) \
+        .repeat_interleave(counts_t)
+    row_of = torch.full((n,), -1, dtype=torch.int64, device=device) \
+        .index_put((order_t,), row_idx)
+    pos_of = torch.full((n,), -1, dtype=torch.int64, device=device) \
+        .index_put((order_t,), torch.arange(order_t.shape[0], device=device))
+    counts = counts_t.cpu().numpy()
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    res_rows = net.res_rows.cpu().numpy()
+    res_row = row_of[net.res_rows].cpu().numpy()
+    res_pos = pos_of[net.res_rows].cpu().numpy()
+    g_row = row_of[gage_rows].cpu().numpy()
+
+    def t64(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+    def by_row(rows):
+        """{schedule row: the indices of the items it holds}."""
+        order = np.argsort(rows, kind="stable")
+        keys, starts = np.unique(rows[order], return_index=True)
+        ends = np.append(starts[1:], order.size)
+        return {int(k): order[a:b] for k, a, b in zip(keys, starts, ends)}
+
+    res_of, gages_of = by_row(res_row), by_row(g_row)
+    none = np.zeros(0, np.int64)
+    out = []
+    for k in range(len(counts)):
+        s, e = int(bounds[k]), int(bounds[k + 1])
+        slots = res_of.get(k, none)
+        gi = gages_of.get(k, none)
+        res = [None] * 5
+        if slots.size:
+            st = t64(slots)
+            sub_da = None
+            if res_da is not None:
+                sub_da = res_da._replace(**{
+                    f: getattr(res_da, f)[st] for f in res_da._fields
+                    if f not in _RES_DA_SHARED})
+            res = [st, t64(res_rows[slots]), t64(res_pos[slots]),
+                   LevelpoolParams(*[p[st] for p in res_params]), sub_da]
+        out.append(_LevelRow(s, e, order_t[s:e], *res,
+                             t64(gi) if gi.size else None))
+    return order_t, out
+
+
+def _take_states(states, idx):
+    return tuple(None if s is None else type(s)(*[f[idx] for f in s])
+                 for s in states)
+
+
+def _put_states(states, idx, sub):
+    return tuple(None if s is None else type(s)(*[
+        f.index_put((idx,), g) for f, g in zip(s, u)])
+        for s, u in zip(states, sub))
+
+
+def _route_levels(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
+                  lo_time, gage_rows, decay, res_da, da_states, step_inputs,
+                  collect, n_real) -> dict:
+    """``route()``'s level-scan strict steps
+    (``troute_tpu/routing/engine.py:604-701``).
+
+    Within a step, row by row of the schedule: the rows' current-step
+    upstream sums from the step's buffer (every upstream node sits at a
+    lower level, so it is final), one MC solve on the rows' lanes (on the
+    card one launch of B1 on the gathered lanes), the flows written back
+    into the buffer, then the row's reservoirs (level pool and DA at the
+    inflow just written) and its gages (nudged), so that the next rows
+    read the dispatched and nudged flows.  The step's previous-state
+    inputs are gathered into the level order once per step, so a row's
+    inputs are slices.  Eager PyTorch costs about 8 launches per row
+    without reservoirs or gages.
+    """
+    device, dtype = q.device, q.dtype
+    real = _np_dtype(dtype)
+    n = q.shape[0]
+    order, rows = _level_rows(net, res_params, res_da, gage_rows, n, device)
+    m = order.shape[0]
+    sentinel = torch.where(net.upstream >= 0, net.upstream, n)
+    up_lv = sentinel[order]
+    up_res = sentinel[net.res_rows]
+    chan_lv = ChannelParams(*[c[order] for c in chan])
+    is_res_lv = net.is_reservoir[order]
+    zero = q.new_zeros(1)
+    n_g = gage_rows.shape[0]
+    mc_calls = 0
+    fvds, nudges, courants = [], [], []
+    for t in range(1, cfg.nts + 1):
+        ql_t, obs_t, month_i = step_inputs(t)
+        t_seconds = float(real(t) * real(cfg.dt))
+        up_prev = _upstream_sum_stepped(q, net.upstream, net.uplan)
+        qup_lv, qd_lv, dp_lv, ql_lv = (a[order] for a in (up_prev, q, depth,
+                                                           ql_t))
+        # the step's buffer: q, then one zero that -1 upstream slots read
+        q_cur = torch.cat([q, zero])
+        v_lv, d_lv = q.new_empty(m), q.new_empty(m)
+        c_lv = q.new_empty((m, 3)) if cfg.return_courant else None
+        res_elev_c, states_c = res_elev, da_states
+        lo_val_c, lo_time_c = lo_val.clone(), lo_time.clone()
+        nudge = q.new_zeros(n_g)
+        for r in rows:
+            s, e = r.start, r.end
+            out = muskingum_cunge_cuda(
+                qup_lv[s:e], q_cur[up_lv[s:e]].sum(dim=1), qd_lv[s:e],
+                ql_lv[s:e], *[c[s:e] for c in chan_lv], dp_lv[s:e], cfg.dt,
+                with_diagnostics=cfg.return_courant)
+            q_rows, v_rows, d_rows = out.qdc, out.velc, out.depthc
+            if r.res_slots is not None:
+                res_lane = is_res_lv[s:e]
+                q_rows = torch.where(res_lane, qd_lv[s:e], q_rows)
+                v_rows = torch.where(res_lane, 0.0, v_rows)
+                d_rows = torch.where(res_lane, dp_lv[s:e], d_rows)
+            q_cur.index_copy_(0, r.rows, q_rows)
+            v_lv[s:e] = v_rows
+            d_lv[s:e] = d_rows
+            if c_lv is not None:
+                c_lv[s:e] = torch.stack([out.cn, out.ck, out.X], dim=-1)
+            if r.res_slots is not None:
+                sl = r.res_slots
+                sub_states = (None if states_c is None
+                              else _take_states(states_c, sl))
+                outflow, elev, d_scat, sub_states = _reservoirs(
+                    r.res_params, r.res_da, res_elev_c[sl],
+                    q_cur[up_res[sl]].sum(dim=1), sub_states, t_seconds,
+                    month_i, cfg.dt)
+                res_elev_c = res_elev_c.index_put((sl,), elev)
+                if states_c is not None:
+                    states_c = _put_states(states_c, sl, sub_states)
+                q_cur.index_put_((r.res_node_rows,), outflow)
+                d_lv.index_put_((r.res_pos,), d_scat)
+            if r.gages is not None:
+                gi = r.gages
+                g_rows = gage_rows[gi]
+                q_g, nudge_g, val_g, time_g = _nudge(
+                    q_cur[g_rows], t_seconds, decay, lo_val_c[gi],
+                    lo_time_c[gi], obs_t[gi])
+                q_cur.index_put_((g_rows,), q_g)
+                lo_val_c.index_put_((gi,), val_g)
+                lo_time_c.index_put_((gi,), time_g)
+                nudge.index_put_((gi,), nudge_g)
+        mc_calls += len(rows)
+        v = q.new_zeros(n).index_copy_(0, order, v_lv)
+        depth = depth.clone().index_copy_(0, order, d_lv)
+        q = q_cur[:n]
+        res_elev, da_states = res_elev_c, states_c
+        lo_val, lo_time = lo_val_c, lo_time_c
+        if collect:
+            fvds.append(torch.stack([q, v, depth], dim=-1)[:n_real])
+            nudges.append(nudge)
+            if c_lv is not None:
+                courants.append(q.new_zeros((n, 3)).index_copy_(
+                    0, order, c_lv)[:n_real])
+    out = _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
+                  da_states, collect, fvds, nudges, courants)
+    out["mc_calls"] = mc_calls
     return out

@@ -2,7 +2,9 @@
 
 The port's copy of ``synthetic_conus`` and ``channel_params`` of the JAX
 package's benchmark (``bench.py:99-145``), with the same random streams,
-so both packages build bit-identical inputs from one seed; and writers
+so both packages build bit-identical inputs from one seed; the diffusive
+benchmark's mainstem reach tree (``mainstem_tree``, ``bench.py:159-198``);
+and writers
 that put such a network on disk as the files the command line reads
 without HDF5: a HYFeatures geopackage (``sqlite3``) and NEXOUT CSV
 forcing.
@@ -136,3 +138,38 @@ def write_nexout_csv(path, ids, values) -> None:
     pd.DataFrame({"q": np.asarray(values, np.float32)},
                  index=pd.Index(np.asarray(ids, np.int64),
                                 name="feature_id")).to_csv(path)
+
+
+def mainstem_tree(n_reaches: int, n_nodes: int, seed: int = 2,
+                  nts: int = 24, dt: float = 300.0):
+    """The JAX package's diffusive benchmark domain (``bench.py:159-198``):
+    a binary tree of ``n_reaches`` reaches of ``n_nodes`` nodes (reach j
+    drains to (j - 1) // 2, reach 0 is the tailwater), 1,500 m nodes on a
+    0.0005 slope, random widths from ``seed``'s stream, lateral inflow
+    0.05 per node and tributary inflow at the heads, 20-80 at the leaves.
+    Returns ``build_domain``'s positional arguments: (reaches, ds_reach,
+    qlat [nts + 2, R, C], dt_qlat, trib [nts + 2, R], dt_trib, dtini)."""
+    rng = np.random.default_rng(seed)
+    n_t = nts + 2
+    level = np.zeros(n_reaches, np.int64)
+    ds_reach = np.full(n_reaches, -1, np.int64)
+    for j in range(1, n_reaches):
+        ds_reach[j] = (j - 1) // 2
+        level[j] = level[ds_reach[j]] + 1
+    dx = 1500.0
+    s0 = 0.0005
+    reaches = []
+    for j in range(n_reaches):
+        z_head = (level[j] + 1) * n_nodes * dx * s0
+        z = z_head - s0 * dx * np.arange(n_nodes)
+        ones = np.ones(n_nodes)
+        reaches.append(dict(
+            z=z, dx=np.full(n_nodes, dx),
+            bo=rng.uniform(15, 40) * ones, traps=ones.copy(),
+            tw=rng.uniform(60, 120) * ones, twcc=rng.uniform(200, 400) * ones,
+            mann=0.035 * ones, manncc=0.07 * ones))
+    qlat = np.full((n_t, n_reaches, n_nodes), 0.05)
+    trib = np.full((n_t, n_reaches), 2.0)
+    leaves = np.setdiff1d(np.arange(n_reaches), ds_reach)
+    trib[:, leaves] = rng.uniform(20, 80, leaves.size)
+    return reaches, ds_reach, qlat, dt, trib, dt, dt
