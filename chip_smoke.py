@@ -26,7 +26,9 @@ Run from the root of a checkout, with no arguments:
 3. Engine, card against CPU: ``route_stepped`` on a 100,000-segment
    synthetic network with level-pool reservoirs and gages, 24 steps, on
    the card (kernel) and on the CPU (plain), in f64 (``check_f64_network``)
-   and f32 (the f32 bar).
+   and f32 (the f32 bar); each f32 value past 5e-2 is listed with its
+   node type (reservoir, gage, gage neighbour or plain), its step, and
+   which f32 run (card or CPU) lies nearer the CPU's f64 run on it.
 4. Main path at CONUS scale: the port's synthetic CONUS network
    (``troute_torch/synthetic.py``: 2,729,077 segments, dt 300 s, 24 steps
    per window, qts 12, f32) through ``route_stepped`` on the card, cold and
@@ -60,7 +62,7 @@ Run from the root of a checkout, with no arguments:
    subsets and the lite restarts read back, B1 launched once per step, the
    boundary restart equal to the first run set's last step; ``task_times``
    and seg-ts/s of the route part and of the whole command.  Then the same
-   control file on a 50,000-flowpath domain: on the card against
+   control file on a 25,000-flowpath domain: on the card against
    ``--cpu`` (the f32 bar), two run sets against one (the f32 bar: the
    second set is warm from the first), and 12 steps with
    ``strict_iterative`` and ``strict_block_skip`` on from the first run
@@ -103,10 +105,43 @@ Run from the root of a checkout, with no arguments:
    256 reaches (f32, Jacobi, uniform tables) as one [8, 256, 16] call on
    the card over 2 steps, against 8
    solo calls (rtol 1e-12) and against the CPU.
+11. Hybrid routing and BMI on the card.  (a) ``synthetic.hybrid_regional``:
+   phase 9's regional network (100,000 segments in 100 basins) as an
+   in-memory RouteLink domain, 8 of whose basins carry a diffusive
+   mainstem (40-64 junction-broken reaches each, ~2,700 segments), built
+   by ``HybridDomain.from_routelink`` (no RouteLink file: the host may
+   lack ``h5py``); every other tree reads natural cross sections from a
+   HYFeatures parquet file, 2 tailwaters take a coastal depth series.
+   MC routes the rest with ``route_stepped`` (f32, 24 steps, qts 12, B1
+   launches = steps), then ``routing/hybrid.py:run_mainstem`` routes the
+   mainstem with the "auto" diffusive configuration of the card (f32,
+   uniform 128-entry tables), one batch lane per tree: outputs finite;
+   MC and diffusive seconds, mainstem seg-ts/s, sub-steps and sweeps,
+   and the idle share and kernels per sub-step of one profiled 1-step
+   run; over 1 step the batch against solo runs of its 8 trees in
+   float64 with exact tables (rtol 1e-12; in float32 trees of different
+   widths leave last-bit differences); on 2 trees over 4 steps the card
+   against the CPU, float64
+   with exact tables at phase 10's f64 bar and float32 with uniform
+   tables at its f32 bar.  (b) The routing BMI
+   (``bmi/bmi_troute.py:BmiTroute``) on the card: phase 9's network (300
+   level-pool lakes as BMI waterbodies) pushed through ``set_value`` with
+   a constant lateral inflow; 12 one-hour ``update_until`` calls in short
+   mode, bit for bit equal to one 144-step ``route_stepped`` call; ms
+   per update and the share spent in ``set_value``/``get_value``, device
+   kernels and the idle share of one profiled update; then, from that
+   warm state, 2 one-hour updates with ``assume_short_ts: False``
+   (``route()``'s fixed point) against ``route_stepped``'s strict fixed
+   point (phase 6's strict f32 bar), with sweeps per step; B1 launches
+   per update equal to the engine's count; 2 updates of one step in each
+   mode on the card against the CPU.
 
 ``--phases LIST`` (e.g. ``9,10`` or ``2-8``) runs only those phases after
 phase 1 and then prints no result lines; the default runs them all.
-``--diffusive-steps N`` times every phase-10 configuration over N steps
+``--engine-segments N`` runs phase 3 on N segments instead of 100,000
+(and prints no result lines): its listing of the f32 values past 5e-2
+at another size.  ``--diffusive-steps N`` times every phase-10
+configuration over N steps
 (``--phases 10 --diffusive-steps 24`` gives 24-step rates for all four;
 the whole script would then outrun its time limit on a slow host).
 
@@ -702,21 +737,14 @@ def phase_kernel_vs_plain(device, dev: dict, n32: int, n64: int,
 
 
 def regional_network(n: int, n_basins: int, seed: int):
-    """A regional drainage network: ``n`` segments in ``n_basins`` basins
-    of equal size, each wired by ``synthetic_conus``'s hop rule (a forward
-    hop of 1-4 segments within the basin, its last segment the
-    tailwater).  The CONUS generator's few giant basins are hundreds of
-    thousands of levels deep (491,078 at full size), where a real basin of
-    a million segments is about 4,000; a region of many basins is the
-    level scan's realistic shape."""
-    rng = np.random.default_rng(seed)
-    ids = np.arange(1, n + 1, dtype=np.int64)
-    idx = np.arange(n)
-    size = -(-n // n_basins)
-    basin_end = np.minimum((idx // size + 1) * size, n) - 1
-    down = ids[np.minimum(idx + rng.integers(1, 5, n), basin_end)]
-    down[idx == basin_end] = 0
-    return ids, down
+    """A regional drainage network (``synthetic.regional_network``):
+    ``n`` segments in ``n_basins`` basins of equal size, each wired by
+    ``synthetic_conus``'s hop rule.  The CONUS generator's few giant
+    basins are hundreds of thousands of levels deep (491,078 at full
+    size), where a real basin of a million segments is about 4,000; a
+    region of many basins is the level scan's realistic shape."""
+    from troute_torch.synthetic import regional_network as generate
+    return generate(n, n_basins, seed)
 
 
 def _network(n: int, n_res: int, n_gage: int, seed: int, conn=None):
@@ -835,11 +863,59 @@ def check_f64_network(got, want, what: str, atol: float = 1e-12) -> dict:
     return st
 
 
+def _f32_flips(case, card: dict, keys, got, want, ref64, nts: int):
+    """Each f32 value past 5e-2 (card against CPU): where it lies (output,
+    step, node row), its node's type (reservoir, gage, a gage's upstream
+    or downstream neighbour, or plain), and which f32 run lies nearer the
+    CPU's f64 run on it."""
+    topo, gage_rows = case[0], np.asarray(case[7]["rows"])
+    near_gage = set(topo.downstream[gage_rows].tolist())
+    near_gage.update(topo.upstream[gage_rows].ravel().tolist())
+    near_gage -= {-1}
+
+    def kind(row):
+        if topo.node_type[row] != 0:
+            return "reservoir"
+        if row in set(gage_rows.tolist()):
+            return "gage"
+        return "gage neighbour" if row in near_gage else "plain"
+
+    ok = ~np.isnan(want)
+    rel = np.where(ok, rel_diff(got, np.where(ok, want, 1.0)), 0.0)
+    out, start = [], 0
+    for k in keys:
+        shape = tuple(card[k].shape)
+        size = int(np.prod(shape))
+        for i in np.flatnonzero(rel[start:start + size] > 5e-2):
+            at = np.unravel_index(i, shape)
+            step = int(at[0]) + 1 if k in ("fvd", "nudge") else nts
+            if k == "fvd":
+                node = kind(int(at[1]))
+            elif k == "nudge" or k.startswith("lastobs"):
+                node = "gage"
+            elif k == "res_elev":
+                node = "reservoir"
+            else:
+                node = kind(int(at[0]))
+            j = start + i
+            nearer = ("card" if abs(got[j] - ref64[j]) < abs(want[j]
+                                                              - ref64[j])
+                      else "cpu" if abs(got[j] - ref64[j])
+                      > abs(want[j] - ref64[j]) else "tie")
+            out.append(dict(output=k, at=[int(x) for x in at], step=step,
+                            node=node, card=float(got[j]),
+                            cpu=float(want[j]), f64=float(ref64[j]),
+                            nearer=nearer))
+        start += size
+    return out
+
+
 def phase_engine_card_vs_cpu(device, n: int, nts: int) -> None:
     import torch
     from troute_torch.ops import muskingum_cuda as mcc
     case = _network(n, n_res=max(n // 1000, 1), n_gage=max(n // 500, 1),
                     seed=5)
+    ref64 = None
     for dtype in (torch.float64, torch.float32):
         before = mcc.LAUNCHES
         t0 = time.perf_counter()
@@ -862,7 +938,18 @@ def phase_engine_card_vs_cpu(device, n: int, nts: int) -> None:
         if dtype == torch.float64:
             st = check_f64_network(got, want, "engine f64")
             bar = f"rtol 1e-9 off at {st['off']} of {st['n']} values"
+            ref64 = want
         else:
+            flips = _f32_flips(case, card, keys, got, want, ref64, nts)
+            tally = {}
+            for f in flips:
+                key = (f["node"], f["nearer"])
+                tally[key] = tally.get(key, 0) + 1
+            log(f"phase 3: f32 values past 5e-2 by node type and the run "
+                f"nearer f64: "
+                f"{ {f'{a}, {b} nearer': v for (a, b), v in tally.items()} }")
+            for f in flips[:60]:
+                log(f"phase 3: f32 past 5e-2: {json.dumps(f)}")
             # f32 secant path flips compound downstream over the steps, so
             # values past 5e-2 are bounded as a share (1e-5) of the run
             ok = ~np.isnan(want)
@@ -1232,17 +1319,21 @@ def phase_strict_card_vs_cpu(device, n: int, nts: int) -> None:
             f"{t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, host_ops: bool = True) -> dict:
     """Device busy time of one call of ``fn`` under ``torch.profiler``: the
     union of the kernel, memcpy and memset intervals of its trace, and the
     kernels that take most of it.  Busy ms is None when the profiler saw no
-    device activity (it then measured nothing)."""
+    device activity (it then measured nothing).  ``host_ops`` False traces
+    the device alone (no CPU operator events), for calls of several
+    hundred thousand kernels."""
     import os
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2142,6 +2233,452 @@ def _diffusive_batched(device, b: int, r: int, c: int, nts: int,
     return dict(card_s=t_card, solo_s=t_solo)
 
 
+# ------------------------------------------------------------- phase 11
+
+def _hybrid_case(device, n: int, n_basins: int, n_trees: int, tmp: Path):
+    """``synthetic.hybrid_regional`` as phase 11 routes it: the
+    ``HybridDomain`` (natural sections of every other tree from a parquet
+    file, a coastal series at 2 tailwaters, staged as
+    ``load_coastal_boundary`` stages it) and the MC network of the rest
+    on ``device``, from the steady flows of its lateral inflow."""
+    import torch
+    from troute_torch import synthetic
+    from troute_torch.network.topology import build_topology_postorder
+    from troute_torch.ops.levelpool import LevelpoolParams
+    from troute_torch.routing import engine
+    from troute_torch.routing.hybrid import HybridDomain
+    h = synthetic.hybrid_regional(n, n_basins, n_trees)
+    rl = h["rl"]
+    hyb = HybridDomain.from_routelink(rl, h["domain"])
+    path = tmp / "topobathy.parquet"
+    h["topobathy"].to_parquet(path)
+    n_nat = hyb.load_topobathy(path)
+    tw_reach = hyb.tailwater_reaches()
+    db = np.full((hyb.n_reaches, 30), np.nan)
+    for tw, series in h["coastal"].items():
+        db[tw_reach[tw]] = series
+    hyb.coastal_db, hyb.coastal_dt_db = db, 3600.0
+    keep = ~np.isin(rl.ids, np.fromiter(hyb.mainstem_set, np.int64))
+    topo = build_topology_postorder(rl.ids[keep], rl.downstream[keep])
+    rows = np.searchsorted(rl.ids, topo.ids)
+    rng = np.random.default_rng(23)
+    qlat = rng.uniform(0.5, 1.5, topo.n_nodes)
+    # the steady flows of that inflow (a routed start); post-order rows
+    # come after every row upstream of them
+    q0 = qlat.copy()
+    for r in range(topo.n_nodes):
+        d = topo.downstream[r]
+        if d >= 0:
+            q0[d] += q0[r]
+    f32 = torch.float32
+    mc = dict(
+        net=engine.network_arrays_from_topology(topo, device=device),
+        chan=engine.ChannelParams.from_arrays(
+            device=device, dtype=f32,
+            **{k: v[rows] for k, v in rl.channel.items()}),
+        lp=LevelpoolParams(*[torch.ones(1, dtype=f32, device=device)] * 9),
+        q0=q0.astype(np.float32), qlat=qlat.astype(np.float32))
+    return dict(h=h, hyb=hyb, topo=topo, mc=mc, n_nat=n_nat)
+
+
+def _hybrid_mc(device, case, nts: int):
+    """MC of the hybrid network on ``device`` (f32, short steps, qts 12):
+    (host fvd [nts, N, 3], seconds)."""
+    import torch
+    from troute_torch.routing import engine
+    mc = case["mc"]
+    t = lambda a: torch.as_tensor(a, device=device)
+    cfg = engine.RoutingConfig(dt=DT, nts=nts, qts_subdivisions=12,
+                               assume_short_ts=True)
+    t0 = time.perf_counter()
+    out = engine.route_stepped(
+        mc["net"], mc["chan"], mc["lp"], cfg, t(mc["q0"]),
+        t(np.full_like(mc["q0"], 0.5)), t(np.zeros(1, np.float32)),
+        t(mc["qlat"][None]))
+    fvd = out["flowveldepth"].cpu().numpy()
+    return fvd, time.perf_counter() - t0
+
+
+def _mainstem_values(ms: dict) -> tuple[np.ndarray, np.ndarray]:
+    d = ms["diffusive"]
+    return d["q"].ravel(), d["depth"].ravel()
+
+
+def _batch_vs_solo(device, hyb, fvd, ids, q0, dtype_s: str, nel,
+                   steps: int) -> float:
+    """The batched run of every tailwater tree against each tree's solo
+    run over ``steps`` steps (Jacobi corrector): the largest relative
+    difference over every save at every valid node."""
+    import torch
+    from troute_torch.diffusive.domain import stack_domains, stack_states
+    from troute_torch.diffusive.solver import (initialize_state,
+                                               run_diffusive,
+                                               run_diffusive_batched)
+    from troute_torch.network.builder import positions_of
+    from troute_torch.routing.hybrid import mainstem_qlat
+    rows, found = positions_of(ids, np.asarray(hyb.trib_segments))
+    trib_q = np.zeros((steps + 1, rows.size))
+    trib_q[0, found] = q0[rows[found]]
+    trib_q[1:, found] = fvd[:steps, rows[found], 0]
+    ms_ids, ql = mainstem_qlat(hyb, 1.0, 1)
+    qlat_rows = {int(s): ql[:, k] for k, s in enumerate(ms_ids)}
+    dtype = torch.float32 if dtype_s == "float32" else torch.float64
+    doms = [hyb.build_diffusive_domain(
+        qlat_rows, DT * 12, trib_q, DT, DT, device=device, dtype=dtype,
+        reach_idx=g, nel_uniform=nel) for g in hyb.tailwater_groups()]
+    sts = [initialize_state(d, torch.full(d.z.shape, 30.0, dtype=dtype,
+                                          device=device), DT / 10.0)
+           for d in doms]
+    bdom = stack_domains(doms)
+    bst = stack_states(sts, doms, bdom.n_cols, bdom.n_reaches)
+    _, bsaves = run_diffusive_batched(bdom, bst, steps * DT, DT,
+                                      corrector_mode="jacobi")
+    worst = 0.0
+    for k, (d, st) in enumerate(zip(doms, sts)):
+        _, saves = run_diffusive(d, st, steps * DT, DT,
+                                 corrector_mode="jacobi")
+        v = d.valid.cpu().numpy()
+        R, C = d.z.shape
+        if len(saves) != len(bsaves):
+            raise AssertionError(f"phase 11: tree {k}: {len(saves)} solo "
+                                 f"saves, {len(bsaves)} batched")
+        for sb, sk in zip(bsaves, saves):
+            for i in (1, 2):
+                g = sb[i][k, :R, -C:].cpu().numpy()[v]
+                w = sk[i].cpu().numpy()[v]
+                worst = max(worst, float(rel_diff(g, w).max()))
+    return worst
+
+
+def phase_hybrid(device, dev: dict, n: int, n_basins: int, n_trees: int,
+                 nts: int, nts_cmp: int) -> dict:
+    """Phase 11 (a): hybrid routing on the card (the module docstring)."""
+    import tempfile
+    import torch
+    from troute_torch.config.schema import HybridParameters
+    from troute_torch.ops import muskingum_cuda as mcc
+    from troute_torch.routing.hybrid import HybridDomain, run_mainstem
+    smi = dev["smi"]
+    out = dict(launches=0)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        case = _hybrid_case(device, n, n_basins, n_trees, Path(tmp))
+        hyb, topo, mc = case["hyb"], case["topo"], case["mc"]
+        n_ms = len(hyb.mainstem_set)
+        log(f"phase 11: hybrid network, N={n} in {n_basins} basins: "
+            f"{n_trees} diffusive trees, {n_ms} mainstem segments in "
+            f"{hyb.n_reaches} reaches "
+            f"({[len(g) for g in hyb.tailwater_groups()]} per tree, widest "
+            f"reach {max(map(len, hyb.reaches))} "
+            f"segments), {len(hyb.trib_segments)} tributaries, natural "
+            f"sections at {case['n_nat']} nodes (parquet), coastal series "
+            f"at 2 tailwaters; MC network {topo.n_nodes} segments (setup "
+            f"{time.perf_counter() - t0:.1f} s)")
+        hp = HybridParameters()
+        auto = hp.resolved_diffusive(torch.device(device).type)
+        mcc.LAUNCHES = 0
+        fvd, t_mc = _hybrid_mc(device, case, nts)
+        if mcc.LAUNCHES != nts:
+            raise AssertionError(f"phase 11: MC launched {mcc.LAUNCHES} B1 "
+                                 f"kernels for {nts} steps")
+        out["launches"] += mcc.LAUNCHES
+        ids = np.asarray(topo.ids)
+        stats = {}
+        torch.cuda.synchronize()
+        ms = run_mainstem(hyb, fvd, ids, mc["q0"], 1.0, DT, 12, hp, device,
+                          stats=stats)
+        t_diff = ms["seconds"]
+        q, d = _mainstem_values(ms)
+        if not (np.isfinite(q).all() and np.isfinite(d).all()
+                and np.isfinite(ms["fvd"]).all()):
+            raise AssertionError("phase 11: non-finite hybrid output")
+        if ms["fvd"].shape != (nts, topo.n_nodes + n_ms, 3):
+            raise AssertionError(f"phase 11: fvd shape {ms['fvd'].shape}")
+        sweeps = stats.get("sweeps", [])
+        out.update(mc_s=t_mc, diffusive_s=t_diff,
+                   seg_ts_s=n_ms * nts / t_diff, substeps=stats["substeps"],
+                   sweeps_per_substep=float(np.mean(sweeps)),
+                   dtype=auto[0], nel=auto[1])
+        log(f"phase 11: MC route_stepped f32 {nts} steps {t_mc:.3f} s ("
+            f"{mcc.LAUNCHES} B1 launches = steps); run_mainstem "
+            f"{auto[0]} nel {auto[1]} ('auto' on the card), {n_trees} "
+            f"batch lanes: {t_diff:.2f} s, {out['seg_ts_s']:.4e} mainstem "
+            f"seg-ts/s, {stats['substeps']} sub-steps, "
+            f"{out['sweeps_per_substep']:.2f} sweeps per sub-step (max "
+            f"{max(sweeps)}), {stats['newton_iters']} Newton iterations in "
+            f"{stats['rtsafe_calls']} rtsafe calls, {stats['syncs']} host "
+            f"syncs; q {q.min():.3g}..{q.max():.3g} m3/s, depth "
+            f"{d.min():.3g}..{d.max():.3g} m  [{smi}]")
+        # one profiled 1-step run against an unprofiled one
+        cut = fvd[:1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st1 = {}
+        run_mainstem(hyb, cut, ids, mc["q0"], 1.0, DT, 12, hp, device,
+                     stats=st1)
+        wall1 = time.perf_counter() - t0
+        prof = profile_window(lambda: run_mainstem(
+            hyb, cut, ids, mc["q0"], 1.0, DT, 12, hp, device),
+            host_ops=False)
+        idle = (None if prof["busy_ms"] is None
+                else 1.0 - prof["busy_ms"] / (wall1 * 1e3))
+        out.update(idle=idle,
+                   kernels_per_substep=prof["launches"] / st1["substeps"])
+        log(f"phase 11: one profiled 1-step run_mainstem: "
+            f"{prof['launches']} device kernels ("
+            f"{out['kernels_per_substep']:.0f} per sub-step), busy "
+            f"{prof['busy_ms']:.1f} ms against {wall1 * 1e3:.0f} ms "
+            f"unprofiled (idle share {idle:.3f}); top {prof['top']}  "
+            f"[{smi}]")
+        # batch against solo runs of its trees over 1 step, in float64
+        # with exact tables: trees of different widths pad columns, and
+        # in float32 the batch then differs from its solo runs in the last
+        # bits
+        t0 = time.perf_counter()
+        rel64 = _batch_vs_solo(device, hyb, fvd, ids, mc["q0"], "float64",
+                               None, 1)
+        if rel64 > 1e-12:
+            raise AssertionError(f"phase 11: float64 batch differs from its "
+                                 f"solo runs by {rel64:.3g}")
+        log(f"phase 11: the batch of {n_trees} trees against their solo "
+            f"runs over 1 step, float64 exact: max rel {rel64:.3g} (rtol "
+            f"1e-12; {time.perf_counter() - t0:.1f} s)")
+        # card against CPU on a 2-tree, nts_cmp-step cut
+        two = {tw: case["h"]["domain"][tw]
+               for tw in case["h"]["tailwaters"][:2]}
+        cut_hyb = HybridDomain.from_routelink(case["h"]["rl"], two)
+        cut_hyb.load_topobathy(Path(tmp) / "topobathy.parquet")
+        tw_reach = cut_hyb.tailwater_reaches()
+        db = np.full((cut_hyb.n_reaches, 30), np.nan)
+        for tw in two:
+            if tw in case["h"]["coastal"]:
+                db[tw_reach[tw]] = case["h"]["coastal"][tw]
+        cut_hyb.coastal_db, cut_hyb.coastal_dt_db = db, 3600.0
+        for dtype_s, nel in (("float64", 0), ("float32", 128)):
+            hp_c = HybridParameters(diffusive_dtype=dtype_s,
+                                    diffusive_table_nel=nel)
+            res = {}
+            for dev_ in (device, "cpu"):
+                t0 = time.perf_counter()
+                r = run_mainstem(cut_hyb, fvd[:nts_cmp], ids, mc["q0"], 1.0,
+                                 DT, 12, hp_c, dev_)
+                res[dev_] = (_mainstem_values(r), time.perf_counter() - t0)
+            bar = _diffusive_bars(res[device][0], res["cpu"][0], dtype_s,
+                                  f"phase 11 {dtype_s} card vs cpu")
+            log(f"phase 11: 2 trees, {nts_cmp} steps, {dtype_s} nel {nel}, "
+                f"card vs cpu: {bar} (card {res[device][1]:.2f} s, cpu "
+                f"{res['cpu'][1]:.2f} s)")
+    log(f"phase 11: hybrid part {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _bmi_network(n: int, n_basins: int, n_lakes: int, seed: int):
+    """Phase 9's regional network as BMI pushes: segment and waterbody
+    arrays, ``n_lakes`` level-pool lakes each between a segment and its
+    downstream segment, and a lateral inflow per segment."""
+    from troute_torch import synthetic
+    ids, down = regional_network(n, n_basins, seed)
+    rng = np.random.default_rng(seed)
+    chan = synthetic.channel_params(n, rng)
+    seg = rng.choice(np.flatnonzero(down > 0), n_lakes, replace=False)
+    lakes = 20_000_000 + np.arange(n_lakes, dtype=np.int64)
+    toid = down.copy()
+    toid[seg] = lakes
+    v = dict(segment_id=ids, segment_toid=toid, waterbody_id=lakes,
+             waterbody_toid=down[seg], LkArea=rng.uniform(1.0, 3.0, n_lakes),
+             h0=rng.uniform(10.0, 11.5, n_lakes), qd0=np.zeros(n_lakes))
+    for name, val in zip(("LkMxE", "OrificeA", "OrificeC", "OrificeE",
+                          "WeirC", "WeirE", "WeirL", "ifd"),
+                         (12.0, 1.2, 0.1, 8.0, 0.4, 11.0, 12.0, 0.9)):
+        v[name] = np.full(n_lakes, val)
+    v.update(chan)
+    qlat = rng.uniform(0.1, 2.0, n)
+    return v, qlat
+
+
+def _bmi(device, pushes: dict, qlat, config: str = ""):
+    from troute_torch.bmi import BmiTroute
+    bmi = BmiTroute(device=device)
+    bmi.initialize(config)
+    for k, val in pushes.items():
+        bmi.set_value(k, val)
+    bmi.set_value("land_surface_water_source__volume_flow_rate", qlat)
+    return bmi
+
+
+_BMI_OUT = ("channel_exit_water_x-section__volume_flow_rate",
+            "channel_water_flow__speed", "channel_water__mean_depth",
+            "lake_water~outgoing__volume_flow_rate", "lake_surface__elevation")
+
+
+def _bmi_values(bmi) -> np.ndarray:
+    return np.concatenate([bmi.get_value(k) for k in _BMI_OUT])
+
+
+def _engine_values(bmi, fvd_step) -> np.ndarray:
+    """``_bmi_values`` of an engine run's step on ``bmi``'s network (a
+    reservoir row's depth column holds its water elevation)."""
+    ids = np.asarray(bmi.get_value("segment_id"), np.int64)
+    rows, _ = bmi._rows_of(ids)
+    res = bmi._topo.reservoir_rows
+    return np.concatenate([fvd_step[rows, 0], fvd_step[rows, 1],
+                           fvd_step[rows, 2], fvd_step[res, 0],
+                           fvd_step[res, 2]])
+
+
+def _warm_copy(src, dst, device):
+    """``src``'s routing state, time 0, into ``dst`` on ``device``."""
+    dst._build_network()
+    dst._q, dst._d, dst._elev = (t.to(device).clone()
+                                 for t in (src._q, src._d, src._elev))
+
+
+def phase_bmi(device, dev: dict, n: int, n_basins: int, n_lakes: int,
+              updates: int, steps: int) -> dict:
+    """Phase 11 (b): the routing BMI on the card (the module docstring)."""
+    import tempfile
+    import torch
+    import yaml
+    from troute_torch.ops import muskingum_cuda as mcc
+    from troute_torch.routing import engine
+    smi = dev["smi"]
+    t_phase = time.perf_counter()
+    pushes, qlat = _bmi_network(n, n_basins, n_lakes, seed=9)
+    out = dict(launches=0)
+    bmi = _bmi(device, pushes, qlat)
+    times, host = [], []
+    for k in range(1, updates + 1):
+        mcc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        bmi.set_value("land_surface_water_source__volume_flow_rate", qlat)
+        t1 = time.perf_counter()
+        bmi.update_until(k * steps * DT)
+        t2 = time.perf_counter()
+        for name in _BMI_OUT[:3]:
+            bmi.get_value(name)
+        t3 = time.perf_counter()
+        if mcc.LAUNCHES != steps:
+            raise AssertionError(f"phase 11: a short update launched "
+                                 f"{mcc.LAUNCHES} B1 kernels for {steps} "
+                                 "steps")
+        out["launches"] += mcc.LAUNCHES
+        times.append(t3 - t0)
+        host.append((t1 - t0) + (t3 - t2))
+    got = _bmi_values(bmi)
+    # the same inputs through one route_stepped call
+    ref = _bmi(device, pushes, qlat)
+    ref._build_network()
+    ql = np.zeros((1, ref._topo.n_nodes), np.float32)
+    rows, _ = ref._rows_of(pushes["segment_id"])
+    ql[0, rows] = qlat
+    cfg = engine.RoutingConfig(dt=DT, nts=updates * steps,
+                               qts_subdivisions=1, assume_short_ts=True)
+    mcc.LAUNCHES = 0
+    r = engine.route_stepped(ref._net, ref._chan, ref._lp, cfg, ref._q,
+                             ref._d, ref._elev,
+                             torch.as_tensor(ql, device=device))
+    out["launches"] += mcc.LAUNCHES
+    want = _engine_values(ref, r["flowveldepth"][-1].cpu().numpy())
+    if not np.array_equal(got.astype(np.float32), want):
+        raise AssertionError(f"phase 11: {updates} BMI updates differ from "
+                             f"one {updates * steps}-step route_stepped call")
+    if not np.isfinite(got).all():
+        raise AssertionError("phase 11: non-finite BMI output")
+    med = statistics.median(times[1:])
+    share = statistics.median(h / t for h, t in zip(host[1:], times[1:]))
+    t_end = updates * steps * DT
+    mcc.LAUNCHES = 0
+    prof = profile_window(lambda: bmi.update_until(t_end + steps * DT))
+    out["launches"] += mcc.LAUNCHES
+    idle = (None if prof["busy_ms"] is None
+            else 1.0 - prof["busy_ms"] / (med * 1e3))
+    out.update(ms_update=med * 1e3, host_share=share,
+               kernels_update=prof["launches"], idle=idle)
+    log(f"phase 11: BMI short mode, {n} segments, {n_lakes} lakes: "
+        f"{updates} update_until calls of {steps} steps, bit for bit equal "
+        f"to one {updates * steps}-step route_stepped call; "
+        f"{med * 1e3:.2f} ms per update (median of {updates - 1} after "
+        f"the first; first {times[0] * 1e3:.1f} ms), set_value/get_value "
+        f"share {share:.3f}; one profiled update: {prof['launches']} device "
+        f"kernels ({steps} of them B1), busy {prof['busy_ms']:.2f} ms "
+        f"(idle share {idle:.3f}); top {prof['top']}  [{smi}]")
+    # fixed-point updates from that warm state
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = str(Path(tmp) / "strict.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump({"compute_parameters": {
+                "assume_short_ts": False,
+                "forcing_parameters": {"dt": DT, "nts": 24}}}, f)
+        fp = _bmi(device, pushes, qlat, cfg_path)
+        _warm_copy(bmi, fp, device)
+        warm = tuple(t.clone() for t in (fp._q, fp._d, fp._elev))
+        vals, sweeps, fp_times = [], [], []
+        for k in (1, 2):
+            mcc.LAUNCHES = 0
+            t0 = time.perf_counter()
+            fp.update_until(k * steps * DT)
+            fp_times.append(time.perf_counter() - t0)
+            counts = fp.last_update_counts
+            if mcc.LAUNCHES != counts["mc_calls"]:
+                raise AssertionError(f"phase 11: fixed-point update launched "
+                                     f"{mcc.LAUNCHES} B1 kernels, the "
+                                     f"engine counted {counts['mc_calls']}")
+            out["launches"] += mcc.LAUNCHES
+            sweeps += counts["strict_sweeps"]
+            vals.append(_bmi_values(fp))
+        cfg = engine.RoutingConfig(dt=DT, nts=2 * steps, qts_subdivisions=1,
+                                   strict_iterative=True)
+        mcc.LAUNCHES = 0
+        r = engine.route_stepped(fp._net, fp._chan, fp._lp, cfg, *warm,
+                                 torch.as_tensor(ql, device=device))
+        out["launches"] += mcc.LAUNCHES
+        fvd = r["flowveldepth"].cpu().numpy()
+        want = np.concatenate([_engine_values(fp, fvd[steps - 1]),
+                               _engine_values(fp, fvd[-1])])
+        bar = check_strict_f32(np.concatenate(vals), want,
+                               "phase 11 BMI fixed point")
+        out.update(sweeps_per_step=float(np.mean(sweeps)),
+                   ms_update_fixed_point=float(np.mean(fp_times)) * 1e3)
+        log(f"phase 11: BMI assume_short_ts False, 2 updates of {steps} "
+            f"steps from the warm state: {np.mean(sweeps):.2f} sweeps per "
+            f"step (max {max(sweeps)}), {out['ms_update_fixed_point']:.1f} "
+            f"ms per update, B1 launches = the engine's mc_calls; against "
+            f"route_stepped's strict fixed point: {bar}  [{smi}]")
+        # card against CPU, 2 updates of one step in each mode (a
+        # fixed-point sweep on the host solves every lane: ~50 sweeps per
+        # step at ~0.1 s each)
+        for name, path in (("short", ""), ("fixed point", cfg_path)):
+            res = {}
+            for dev_ in (device, "cpu"):
+                b = _bmi(dev_, pushes, qlat, path)
+                if path:
+                    _warm_copy(bmi, b, dev_)
+                mcc.LAUNCHES = 0
+                v = []
+                for k in (1, 2):
+                    b.update_until(k * DT)
+                    v.append(_bmi_values(b))
+                if dev_ != "cpu":
+                    out["launches"] += mcc.LAUNCHES
+                elif mcc.LAUNCHES:
+                    raise AssertionError("phase 11: the CPU BMI launched B1")
+                res[dev_] = np.concatenate(v)
+            if name == "short":
+                st = check_f32_bar(res[device], res["cpu"],
+                                   "phase 11 BMI short card vs cpu",
+                                   max_share=1e-5)
+                bar = (f"f32 bar: median {st['median']:.3g}, p95 "
+                       f"{st['p95']:.3g}, max {st['max']:.3g}")
+            else:
+                bar = check_strict_f32(res[device], res["cpu"],
+                                       "phase 11 BMI fixed point card vs cpu")
+            log(f"phase 11: BMI {name}, 2 updates of one step, card vs "
+                f"cpu: {bar}")
+    log(f"phase 11: BMI part {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def foreign_modules() -> list[str]:
     """Modules of JAX, of the JAX package or of its ``bench.py`` that this
     process has imported."""
@@ -2160,7 +2697,11 @@ def main() -> int:
                          "default times 24 for the uniform-table leg and 6 "
                          "for the others, to keep the script within its "
                          "time limit)")
-    ap.add_argument("--phases", default="2-10",
+    ap.add_argument("--engine-segments", type=int, default=100_000,
+                    help="segments of phase 3's network (the default is "
+                         "the checked size; another lists the f32 values "
+                         "past 5e-2 of that size)")
+    ap.add_argument("--phases", default="2-11",
                     help="phases to run after phase 1, as a range or a "
                          "comma list (e.g. 9,10); the default runs all, "
                          "and only a full run prints the result lines")
@@ -2177,7 +2718,7 @@ def main() -> int:
     for part in opts.phases.split(","):
         lo, _, hi = part.partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    full = phases >= set(range(2, 11))
+    full = phases >= set(range(2, 12)) and opts.engine_segments == 100_000
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     device = "cuda:0"
     torch.cuda.set_device(device)
@@ -2189,7 +2730,7 @@ def main() -> int:
         r = phase_kernel_vs_plain(device, dev, n32=N_CONUS, n64=1_000_000,
                                   baseline=baseline)
     if 3 in phases:
-        phase_engine_card_vs_cpu(device, n=100_000, nts=24)
+        phase_engine_card_vs_cpu(device, n=opts.engine_segments, nts=24)
     if phases & {4, 7}:
         m = phase_main_path(device, dev, n=N_CONUS, nts=24,
                             baseline=baseline)
@@ -2204,7 +2745,7 @@ def main() -> int:
         del m["setup"]
         torch.cuda.empty_cache()
     if 8 in phases:
-        c = phase_cli(dev, n_full=N_CONUS, n_small=50_000, n_strict=25_000)
+        c = phase_cli(dev, n_full=N_CONUS, n_small=25_000, n_strict=25_000)
     if opts.baseline is not None:
         main_path_turns(opts.baseline, n=N_CONUS, nts=24, smi=dev["smi"])
     if 9 in phases:
@@ -2216,6 +2757,11 @@ def main() -> int:
         d = phase_diffusive(device, dev, r=2048, c=16, nts=24, r_cpu=256,
                             nts_cmp=4, batch=8,
                             timed_steps=opts.diffusive_steps)
+    if 11 in phases:
+        hy = phase_hybrid(device, dev, n=N_REGION, n_basins=N_BASINS,
+                          n_trees=8, nts=24, nts_cmp=4)
+        bm = phase_bmi(device, dev, n=N_REGION, n_basins=N_BASINS,
+                       n_lakes=300, updates=12, steps=12)
     if foreign_modules():
         raise AssertionError(f"the port's run imported {foreign_modules()}")
     log(f"total {time.perf_counter() - t_start:.1f} s; imported nothing of "
@@ -2230,11 +2776,13 @@ def main() -> int:
         {"name": "mc_secant", "route": "cuda", "source": src,
          "replaces": "troute_tpu/ops/muskingum_pallas.py:42",
          "launches": m["launches"] + s["launches"]["mc_secant"]
-         + c["launches"]["mc_secant"] + lv["launches"],
+         + c["launches"]["mc_secant"] + lv["launches"]
+         + hy["launches"] + bm["launches"],
          "launches_by_path": {"phase 4": m["launches"],
                               "phase 7": s["launches"]["mc_secant"],
                               "phase 8": c["launches"]["mc_secant"],
-                              "phase 9": lv["launches"]},
+                              "phase 9": lv["launches"],
+                              "phase 11": hy["launches"] + bm["launches"]},
          "max_abs_err": max(m["max_abs"], r["max_abs"]),
          **{k: m[k] for k in keys}, "library_ms": None,
          "floor_ms": m["floor_ms"], "baseline_ms": m["baseline_ms"],
@@ -2250,7 +2798,7 @@ def main() -> int:
          "launches_by_path": {"phase 4": m["skip_launches"],
                               "phase 7": s["launches"]["mc_secant_skip"],
                               "phase 8": c["launches"]["mc_secant_skip"],
-                              "phase 9": 0},
+                              "phase 9": 0, "phase 11": 0},
          "max_abs_err": s["max_abs"], **{k: s[k] for k in keys},
          "library_ms": None, "floor_ms": s["floor_ms"],
          "baseline_ms": s["baseline_ms"],
@@ -2258,7 +2806,9 @@ def main() -> int:
          "active_blocks": s["active_blocks"]}],
         "cli": {k: c[k] for k in ("task_times", "route_seg_ts_s",
                                   "command_seg_ts_s", "stages")},
-        "diffusive": d}))
+        "diffusive": d,
+        "hybrid": {k: v for k, v in hy.items() if k != "launches"},
+        "bmi": {k: v for k, v in bm.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -507,13 +507,72 @@ def test_level_scan_default_compute_matches(geopackage_bases):
                             "diffusive_domain": "domain/diffusive.yaml"}},
      "A10/A11"),
     ({"parallel_compute_method": "sharded"}, "A13")])
-def test_waiting_branches_raise(geopackage_bases, change, item):
+def test_waiting_branches_raise(geopackage_bases, tmp_path, monkeypatch,
+                                change, item):
+    """The two branches that waited for ROADMAP A10/A11 and A13.  Hybrid
+    routing now routes: on ``test_torch_hybrid``'s RouteLink domain the
+    port's run equals the JAX command line's (MC rows and the appended
+    mainstem at the f32 bar).  ``sharded`` routes on one device: under
+    ``--cpu`` bit for bit as without it, and at the f32 bar against the
+    JAX command line, which shards over this file's 8 CPU devices.  The
+    port raises, naming A13, only where the JAX command line would shard
+    and it has more than one GPU."""
+    import torch
     bases, dom = geopackage_bases
+    if item == "A10/A11":
+        from test_torch_hybrid import hybrid_config, write_hybrid_domain
+        hbases = [tmp_path / "t", tmp_path / "j"]
+        hdom = [write_hybrid_domain(b) for b in hbases][0]
+        cfg = hybrid_config()
+        cfg["compute_parameters"].update(change)
+        got, want = run_both(cfg, *hbases, name="hybrid.yaml")
+        n_ms = len(hdom["mainstem_ids"])
+        np.testing.assert_array_equal(got["ids"], want["ids"])
+        assert set(got["ids"][-n_ms:]) == set(hdom["mainstem_ids"])
+        f32_bar(got["fvd"], want["fvd"])
+        np.testing.assert_array_equal(got["diffusive"]["ids"],
+                                      want["diffusive"]["ids"])
+        return
     cfg = _geopackage_cfg(dom["ids"], **change)
-    p = bases[0] / f"waits_{item[:3]}.yaml"
-    yaml.safe_dump(cfg, open(p, "w"))
+    cfg["output_parameters"] = {}
+    got, want = run_both(cfg, *bases, name="sharded.yaml")
+    plain = copy.deepcopy(cfg)
+    del plain["compute_parameters"]["parallel_compute_method"]
+    p = bases[0] / "unsharded.yaml"
+    yaml.safe_dump(plain, open(p, "w"))
+    alone = torch_cli.main_v04(["-f", str(p), "--cpu"])
+    np.testing.assert_array_equal(got["fvd"], alone["fvd"])
+    for g, w in zip(got["final_state"], alone["final_state"]):
+        np.testing.assert_array_equal(g, w)
+    f32_bar(got["fvd"], want["fvd"])
+    # where the JAX command line shards, on more than one GPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match=item):
-        torch_cli.main_v04(["-f", str(p), "--cpu"])
+        torch_cli.main_v04(["-f", str(bases[0] / "sharded.yaml")])
+
+
+def test_hybrid_without_diffusive_domain_refused_by_both_schemas(tmp_path):
+    """``run_hybrid_routing: True`` without a ``diffusive_domain``: both
+    packages' ``load_config`` refuse it with the same message, so neither
+    command line reaches its hybrid branch."""
+    from pydantic import ValidationError
+
+    from troute_torch.config import load_config as torch_load
+    from troute_tpu.config import load_config as jax_load
+    cfg = geopackage_config()
+    cfg["compute_parameters"]["hybrid_parameters"] = {
+        "run_hybrid_routing": True}
+    p = tmp_path / "no_domain.yaml"
+    yaml.safe_dump(cfg, open(p, "w"))
+    messages = []
+    for load in (torch_load, jax_load):
+        with pytest.raises(ValidationError,
+                           match="run_hybrid_routing requires "
+                                 "diffusive_domain") as err:
+            load(p)
+        messages.append([e["msg"] for e in err.value.errors()])
+    assert messages[0] == messages[1]
 
 
 def test_no_card_and_no_cpu_flag_raises(geopackage_bases, monkeypatch):

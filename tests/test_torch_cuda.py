@@ -1,8 +1,8 @@
 """Tests of the port that need the card: kernels B1 and B2 against their
 plain versions on the GPU, the wrapper's launch accounting and checks, the
-engine (short and strict modes, ``route()``'s level scan) and the
-diffusive solver (four configurations, a batch) on the card against the
-CPU.
+engine (short and strict modes, ``route()``'s level scan), the diffusive
+solver (four configurations, a batch), the hybrid mainstem run and the
+BMI's updates on the card against the CPU.
 
 Run on a machine with a CUDA GPU and nvcc:
 
@@ -429,3 +429,62 @@ def test_diffusive_card_matches_cpu(cuda, dtype, mode, nel):
 def test_diffusive_batched_on_card_matches_solo(cuda):
     from chip_smoke import _diffusive_batched
     _diffusive_batched(cuda, 3, 16, 16, 4, "card test")
+
+
+@pytest.mark.parametrize("dtype_s, nel", [("float64", 0), ("float32", 128)])
+def test_run_mainstem_card_matches_cpu(cuda, tmp_path, dtype_s, nel):
+    """``routing/hybrid.py:run_mainstem`` on two trees of
+    ``synthetic.hybrid_regional`` (10,000 segments, MC flows of 4 steps
+    routed on the CPU), card against CPU at ``chip_smoke.py``'s phase 10
+    bars."""
+    from chip_smoke import (_diffusive_bars, _hybrid_case, _hybrid_mc,
+                            _mainstem_values)
+    from troute_torch.config.schema import HybridParameters
+    from troute_torch.routing.hybrid import run_mainstem
+    case = _hybrid_case("cpu", 10_000, 10, 2, tmp_path)
+    fvd, _ = _hybrid_mc("cpu", case, 4)
+    hp = HybridParameters(diffusive_dtype=dtype_s, diffusive_table_nel=nel)
+    runs = [run_mainstem(case["hyb"], fvd, np.asarray(case["topo"].ids),
+                         case["mc"]["q0"], 1.0, DT, 12, hp, d)
+            for d in (cuda, "cpu")]
+    assert runs[0]["dtype"] == dtype_s
+    _diffusive_bars(*[_mainstem_values(r) for r in runs], dtype_s,
+                    f"run_mainstem {dtype_s}")
+
+
+@pytest.mark.parametrize("mode", ["short", "fixed point"])
+def test_bmi_update_card_matches_cpu(cuda, tmp_path, mode):
+    """``BmiTroute`` on a 5,000-segment regional network with 20 lakes, 2
+    updates of 2 steps on the card against the CPU: short mode at the f32
+    bar, ``assume_short_ts: False`` (from a warm state) at the strict f32
+    bar; B1 launched once per short step."""
+    import yaml
+    from chip_smoke import (_bmi, _bmi_network, _bmi_values, _warm_copy,
+                            check_f32_bar, check_strict_f32)
+    pushes, qlat = _bmi_network(5_000, 5, 20, seed=9)
+    path = ""
+    warm = None
+    if mode == "fixed point":
+        path = str(tmp_path / "strict.yaml")
+        yaml.safe_dump({"compute_parameters": {
+            "assume_short_ts": False,
+            "forcing_parameters": {"dt": DT, "nts": 4}}}, open(path, "w"))
+        warm = _bmi("cpu", pushes, qlat)
+        warm.update_until(12 * DT)
+    vals = []
+    for dev in (cuda, "cpu"):
+        bmi = _bmi(dev, pushes, qlat, path)
+        if warm is not None:
+            _warm_copy(warm, bmi, dev)
+        before = muskingum_cuda.LAUNCHES
+        v = []
+        for k in (1, 2):
+            bmi.update_until(2 * k * DT)
+            v.append(_bmi_values(bmi))
+        if mode == "short" and dev == cuda:
+            assert muskingum_cuda.LAUNCHES - before == 4
+        vals.append(np.concatenate(v))
+    if mode == "short":
+        check_f32_bar(*vals, "BMI short card vs cpu", max_share=1e-5)
+    else:
+        check_strict_f32(*vals, "BMI fixed point card vs cpu")

@@ -79,7 +79,9 @@ for name in ("cli", "__main__", "config.schema", "io.netcdf", "io.output",
              "io.rfc", "network.builder", "network.graph",
              "network.hyfeatures", "network.gl_constants",
              "network.rfc_crosswalk", "da_assembly", "parity",
-             "diffusive.xsection", "diffusive.solver", "diffusive.domain"):
+             "diffusive.xsection", "diffusive.solver", "diffusive.domain",
+             "io.coastal", "routing.hybrid", "bmi", "bmi.codec",
+             "bmi.bmi_troute", "bmi.bmi_reservoirs", "bmi.bmi_daforcing"):
     assert "troute_torch." + name in names, name
 from troute_torch.io.netcdf import NetCDFFile
 try:
@@ -98,6 +100,39 @@ dst = dsol.initialize_state(dd, torch.full((3, 4), 30.0, dtype=torch.float64),
 dst, saves = dsol.run_diffusive(dd, dst, 600.0, 300.0,
                                 corrector_mode="jacobi")
 assert len(saves) == 2 and bool(torch.isfinite(dst.y).all())
+from troute_torch import synthetic
+from troute_torch.bmi import BmiTroute
+from troute_torch.bmi.bmi_reservoirs import BmiReservoir
+from troute_torch.config.schema import HybridParameters
+from troute_torch.routing.hybrid import HybridDomain, run_mainstem
+h = synthetic.hybrid_regional(2000, 4, 2, reaches=(3, 5))
+hyb = HybridDomain.from_routelink(h["rl"], h["domain"])
+mc_ids = h["rl"].ids[~np.isin(h["rl"].ids, list(hyb.mainstem_set))]
+hy = run_mainstem(hyb, np.ones((2, mc_ids.size, 3), np.float32), mc_ids,
+                  np.ones(mc_ids.size), 0.5, 300.0, 12, HybridParameters(),
+                  "cpu")
+assert hy["fvd"].shape == (2, mc_ids.size + len(hyb.mainstem_set), 3)
+assert np.isfinite(hy["fvd"]).all()
+bmi = BmiTroute(device="cpu")
+bmi.initialize()
+bmi.set_value("segment_id", np.arange(1, 5))
+bmi.set_value("segment_toid", np.array([2, 3, 4, 0]))
+for k, v in dict(dx=1500.0, bw=8.0, tw=24.0, twcc=72.0, n=0.05, ncc=0.1,
+                 cs=0.8, s0=0.004).items():
+    bmi.set_value(k, np.full(4, v))
+bmi.set_value("land_surface_water_source__volume_flow_rate", np.ones(4))
+bmi.update()
+assert (bmi.get_value("channel_exit_water_x-section__volume_flow_rate")
+        > 0).all()
+res = BmiReservoir(device="cpu")
+res.initialize()
+for k, v in dict(LkArea=2.0, LkMxE=12.0, OrificeA=1.2, OrificeC=0.1,
+                 OrificeE=8.0, WeirC=0.4, WeirE=11.0, WeirL=12.0,
+                 lake_surface__elevation=10.5).items():
+    res.set_value(k, [v])
+res.set_value("lake_water~incoming__volume_flow_rate", [5.0])
+res.update()
+assert res.get_value("lake_water~outgoing__volume_flow_rate")[0] > 0
 """ + _PROBE.split("import troute_torch", 1)[1].replace(
     'print("jax" in sys.modules, any(m.startswith("jax.") for m in sys.modules))',
     'levels = engine.route(engine.network_arrays_from_topology(\n'
@@ -111,10 +146,11 @@ assert len(saves) == 2 and bool(torch.isfinite(dst.y).all())
 def test_port_imports_nothing_of_the_jax_package():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     process from which ``h5py`` is hidden, and which then routes a tiny
-    network on the CPU (short steps and the level scan) and a tiny
-    diffusive domain: every module imports without ``h5py`` (a NetCDF
-    read then raises an ``ImportError`` that names it), and no module of
-    JAX, of ``troute_tpu`` or ``bench`` is loaded."""
+    network on the CPU (short steps and the level scan), a tiny diffusive
+    domain, a tiny hybrid mainstem (``run_mainstem``) and one update of
+    the routing and reservoir BMIs: every module imports without ``h5py``
+    (a NetCDF read then raises an ``ImportError`` that names it), and no
+    module of JAX, of ``troute_tpu`` or ``bench`` is loaded."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_ENABLE_X64", "XLA_FLAGS")}
     env["PYTHONPATH"] = str(REPO)
@@ -132,5 +168,8 @@ def test_no_source_of_the_port_imports_the_jax_side(name):
     assert len(files) > 10
     assert {"solver.py", "domain.py", "xsection.py"} <= {
         f.name for f in files if f.parent.name == "diffusive"}
+    assert {"bmi_troute.py", "bmi_reservoirs.py", "bmi_daforcing.py",
+            "codec.py"} <= {f.name for f in files if f.parent.name == "bmi"}
+    assert {"hybrid.py", "coastal.py"} <= {f.name for f in files}
     for f in files:
         assert not pat.search(f.read_text()), f

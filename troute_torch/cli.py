@@ -16,10 +16,14 @@ tensors); the schema's default, ``assume_short_ts: False`` without
 ``strict_iterative``, goes through ``route()``'s level scan, as in the JAX
 CLI.  Tensors are made once per run on that device in float32; the
 state handed from run set to run set stays there, and flows, nudges and
-Courant numbers come to the host once per run set.  Two branches of the
-JAX CLI wait and raise ``NotImplementedError`` naming their ROADMAP item:
-hybrid diffusive routing (A11; the solver itself, A10, is ported) and
-``parallel_compute_method: sharded`` (A13).
+Courant numbers come to the host once per run set.  Hybrid routing
+(``run_hybrid_routing`` with a ``diffusive_domain``) carves the mainstem
+out of the MC network and routes it after the MC run with
+``routing/hybrid.py:run_mainstem``, on the same device.
+``parallel_compute_method: sharded`` routes on one device, as the JAX CLI
+does wherever it would not shard; where it would (a short or fixed-point
+run without Courant numbers, on more than one device) the port raises
+``NotImplementedError`` naming ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -489,16 +493,47 @@ def main_v04(argv=None) -> dict:
     t_start = time.time()
     comp = cfg.compute_parameters
     strict_iterative = bool(getattr(comp, "strict_iterative", False))
-    if comp.hybrid_parameters.run_hybrid_routing:
+    # the JAX command line shards only short or fixed-point runs without
+    # Courant numbers on more than one device (troute_tpu/cli.py:680-683)
+    # and routes every other sharded run on one device, as here
+    n_devices = 1 if device.type == "cpu" else torch.cuda.device_count()
+    if str(comp.parallel_compute_method or "") == "sharded" \
+            and (comp.assume_short_ts or strict_iterative) \
+            and not comp.return_courant and n_devices > 1:
         raise NotImplementedError(
-            "run_hybrid_routing: the coupling of the diffusive mainstem "
-            "solver to MC routing is not ported yet (ROADMAP A10/A11: the "
-            "solver, A10, is ported; the coupling, A11, is not)")
-    if str(comp.parallel_compute_method or "") == "sharded":
-        raise NotImplementedError(
-            "parallel_compute_method: sharded: routing across several "
-            "GPUs is not ported yet (ROADMAP A13)")
-    built = build_network(cfg, base)
+            "parallel_compute_method: sharded on more than one GPU: "
+            "routing across several GPUs is not ported yet (ROADMAP A13)")
+    hyb = None
+    exclude = None
+    hp = comp.hybrid_parameters
+    if hp.run_hybrid_routing and hp.diffusive_domain:
+        from troute_torch.routing.hybrid import HybridDomain
+        hyb = HybridDomain(cfg, base)
+        exclude = hyb.mainstem_set
+        LOG.info("hybrid routing: %d mainstem segments in %d reaches",
+                 len(hyb.mainstem_set), hyb.n_reaches)
+        if hp.run_refactored_network and hp.refactored_domain \
+                and hp.refactored_topobathy_domain:
+            n_r = hyb.load_refactored(base / hp.refactored_domain,
+                                      base / hp.refactored_topobathy_domain)
+            LOG.info("refactored diffusive network: %d reaches", n_r)
+        elif hp.use_natl_xsections and hp.topobathy_domain:
+            n_nat = hyb.load_topobathy(base / hp.topobathy_domain)
+            LOG.info("natural cross sections at %d nodes", n_nat)
+        coastal_nc = fp.coastal_boundary_input_file
+        if hp.coastal_boundary_domain and coastal_nc:
+            nc_p = base / coastal_nc
+            dom_p = base / hp.coastal_boundary_domain
+            if nc_p.exists() and dom_p.exists():
+                ok = hyb.load_coastal_boundary(nc_p, dom_p, t0)
+                LOG.info("coastal downstream boundary: %s",
+                         "active (dsbc_option=1)" if ok
+                         else "no covered tailwater, using normal depth")
+            else:
+                LOG.warning("coastal boundary files missing (%s, %s); "
+                            "falling back to normal-depth boundary",
+                            nc_p, dom_p)
+    built = build_network(cfg, base, exclude_ids=exclude)
     pp = cfg.network_topology_parameters.preprocessing_parameters
     if pp and pp.preprocess_only:
         # build + cache the network, then stop (reference
@@ -770,6 +805,24 @@ def main_v04(argv=None) -> dict:
         at, is_lake = positions_of(lakes, out_ids)
         out_ids[is_lake] = outlets[at[is_lake]]
 
+    # ---- diffusive mainstem routing (hybrid coupling) ----
+    diffusive_out = None
+    if hyb is not None and fvd.shape[0]:
+        from troute_torch.routing.hybrid import run_mainstem
+        all_files = [f for r in run_sets for f in r["qlat_files"]]
+        if all_files:
+            qlat_source = all_files
+        elif fp.qlat_input_file:
+            qlat_source = base / fp.qlat_input_file
+        else:
+            qlat_source = float(fp.qlat_const)
+        ms = run_mainstem(
+            hyb, fvd, topo.ids, built.q0, qlat_source, dt, qts, hp, device,
+            out_ids=out_ids,
+            n_qlat_rows=sum(max(1, -(-r["nts"] // qts)) for r in run_sets))
+        fvd, out_ids, diffusive_out = ms["fvd"], ms["ids"], ms["diffusive"]
+        task_times["route_time"] += ms["seconds"]
+
     # ---- outputs ----
     t_start = time.time()
     def _subset(segments):
@@ -980,7 +1033,7 @@ def main_v04(argv=None) -> dict:
             "parity": parity_stats,
             "courant": (np.concatenate(all_courant)
                         if all_courant else None),
-            "diffusive": None,
+            "diffusive": diffusive_out,
             "final_state": (_host(q0), _host(d0), _host(elev0))}
 
 

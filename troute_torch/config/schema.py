@@ -160,6 +160,14 @@ class HybridParameters(_Permissive):
         reference parity), the exact-table float64 configuration runs.
         Only hybrid routing reads these, so callers need not resolve them
         while it is off.
+
+        The JAX package chose this for a TPU, which emulates float64.  An
+        H100 computes float64 natively, and the choice stands there too:
+        on the diffusive benchmark tree (2,048 reaches of 16 nodes, 24
+        steps; NVIDIA H100 80GB HBM3, 700 W, ``chip_smoke.py`` phase 10)
+        float32 with uniform tables was the fastest configuration,
+        17.81-33.14 s per run, and float64 with exact tables took 37.25-
+        50.43 s, 1.5-2.2x as long (PERF.md).
         """
         accel = backend != "cpu"
         dtype = self.diffusive_dtype

@@ -7,10 +7,13 @@ this module imports no JAX.  Float fields take the given ``dtype``; index
 fields become int64; int32 fields (reservoir types, counts, series
 indices, months) stay int32; bool fields stay bool.  Every field is
 copied, so the tensors never alias JAX's read-only buffers.
+``from_hybrid_domain`` and ``from_bmi_state`` carry the host state of the
+JAX package's ``HybridDomain`` and BMI instance across.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import numpy as np
@@ -135,6 +138,41 @@ def from_diffusive_domain(dom, *, device, dtype) -> DiffusiveDomain:
 
 def from_diffusive_state(st, *, device, dtype) -> DiffusiveState:
     return _fields(DiffusiveState, st, device=device, dtype=dtype)
+
+
+def from_hybrid_domain(jax_hyb):
+    """A port ``HybridDomain`` holding a copy of a JAX ``HybridDomain``'s
+    state (host NumPy arrays, lists and dicts; no file is read)."""
+    from troute_torch.routing.hybrid import HybridDomain
+    hyb = HybridDomain.__new__(HybridDomain)
+    hyb.__dict__.update(copy.deepcopy(vars(jax_hyb)))
+    return hyb
+
+
+def from_bmi_state(jax_bmi, bmi):
+    """Carry a JAX BMI instance (``troute_tpu.bmi.BmiTrouteTpu``) into the
+    port's ``bmi`` (a ``BmiTroute`` initialized with the same control
+    file, or none): its time, its BMI values, and its routing state
+    (``_q``, ``_d``, ``_elev`` in float32, the diffusive ``_dst`` in the
+    port's resolved diffusive dtype, the coastal transport series) on
+    ``bmi``'s device.  Both build the same network from the same inputs,
+    so rows line up.  Returns ``bmi``."""
+    bmi._values = {k: np.array(v) for k, v in jax_bmi._values.items()}
+    bmi._time = float(jax_bmi._time)
+    if not bmi._network_ready:
+        bmi._build_network()
+    dev = bmi._device
+    for f in ("_q", "_d", "_elev"):
+        setattr(bmi, f, _t(getattr(jax_bmi, f), device=dev,
+                           dtype=torch.float32))
+    if getattr(jax_bmi, "_dst", None) is not None:
+        dtype = (torch.float32 if bmi._diff_dtype_str == "float32"
+                 else torch.float64)
+        bmi._dst = from_diffusive_state(jax_bmi._dst, device=dev,
+                                        dtype=dtype)
+    if getattr(jax_bmi, "_coastal", None) is not None:
+        bmi._coastal = copy.deepcopy(jax_bmi._coastal)
+    return bmi
 
 
 def to_numpy(x: Any) -> Any:

@@ -173,3 +173,128 @@ def mainstem_tree(n_reaches: int, n_nodes: int, seed: int = 2,
     leaves = np.setdiff1d(np.arange(n_reaches), ds_reach)
     trib[:, leaves] = rng.uniform(20, 80, leaves.size)
     return reaches, ds_reach, qlat, dt, trib, dt, dt
+
+
+def regional_network(n: int, n_basins: int, seed: int):
+    """A regional drainage network: ``n`` segments in ``n_basins`` basins
+    of equal size, each wired by ``synthetic_conus``'s hop rule (a forward
+    hop of 1-4 segments within the basin, its last segment the
+    tailwater).  Returns (ids, downstream ids), 0 marking a tailwater."""
+    rng = np.random.default_rng(seed)
+    ids = np.arange(1, n + 1, dtype=np.int64)
+    idx = np.arange(n)
+    size = -(-n // n_basins)
+    basin_end = np.minimum((idx // size + 1) * size, n) - 1
+    down = ids[np.minimum(idx + rng.integers(1, 5, n), basin_end)]
+    down[idx == basin_end] = 0
+    return ids, down
+
+
+def hybrid_regional(n: int, n_basins: int, n_trees: int, seed: int = 11,
+                    reaches=(48, 64), n_coastal: int = 2):
+    """``regional_network`` as an in-memory RouteLink domain whose first
+    ``n_trees`` basins each carry a diffusive mainstem: the trunk up the
+    largest subtree from the basin's tailwater.  Tributaries join the
+    trunk at every J-th trunk segment only (J drawn from 6-10 per tree;
+    the segments that hopped onto the trunk in between drain to the next
+    such junction downstream), so a junction-broken reach (a new reach at
+    each trunk segment whose full-network in-degree is not 1, as
+    ``routing/hybrid.py:HybridDomain._build`` splits them) is J segments
+    long; the trunk is cut where it has opened its drawn number of
+    reaches.  Mainstem segments get lowland river channels (bottom width
+    ~3 sqrt(Q) for a steady lateral inflow of 1 m3/s per upstream segment,
+    slope 2e-5 to 2e-4, so the mainstem lies within ~100 m of its
+    tailwater's datum, as a coastal mainstem does); bed altitudes fall
+    downstream at each segment's slope everywhere.
+
+    Returns a dict: 'rl' (``io.routelink.RouteLinkData``), 'domain'
+    ({tailwater: {"links": [...]}}, the diffusive-domain YAML's content),
+    'topobathy' (a HYFeatures-parquet frame of natural sections, ``hy_id``
+    wb-<id>, for the links of every other tree), 'coastal' ({tailwater:
+    hourly depth series} for the first ``n_coastal`` trees) and
+    'tailwaters'."""
+    import pandas as pd
+
+    from troute_torch.io.routelink import RouteLinkData
+
+    ids, down = regional_network(n, n_basins, seed)
+    rng = np.random.default_rng(seed + 1)
+    chan = channel_params(n, rng)
+
+    def children(down):
+        key = np.where(down > 0, down - 1, n)     # ids are 1..n in order
+        order = np.argsort(key, kind="stable")
+        return order, np.searchsorted(key[order], np.arange(n + 1))
+
+    order, starts = children(down)
+    size = np.ones(n, np.int64)
+    for i in range(n):                    # hops go forward: upstream first
+        if down[i] > 0:
+            size[down[i] - 1] += size[i]
+    tailwaters = [int(ids[k]) for k in np.flatnonzero(down == 0)[:n_trees]]
+    trunks = []
+    for tw in tailwaters:
+        trunk, k = [], tw - 1
+        while True:
+            trunk.append(k)
+            kids = order[starts[k]:starts[k + 1]]
+            if kids.size == 0:
+                break
+            k = int(kids[np.argmax(size[kids])])
+        trunk = np.asarray(trunk)
+        every = int(rng.integers(6, 11))
+        junction = trunk[::every]
+        on_trunk = np.zeros(n, bool)
+        on_trunk[trunk] = True
+        for i, t in enumerate(trunk):
+            if i % every == 0:
+                continue
+            kids = order[starts[t]:starts[t + 1]]
+            down[kids[~on_trunk[kids]]] = ids[junction[i // every]]
+        trunks.append(trunk)
+    indeg = np.bincount(down[down > 0] - 1, minlength=n)
+    domain = {}
+    for tw, trunk in zip(tailwaters, trunks):
+        want = int(rng.integers(reaches[0], reaches[1] + 1))
+        opened = np.cumsum(indeg[trunk] != 1)
+        cut = int(np.searchsorted(opened, want)) + 1
+        # a river, not a creek: the mainstem ends where the trunk drains
+        # less than a tenth of its basin
+        cut = min(cut, int(np.sum(size[trunk] >= size[trunk[0]] // 10)))
+        domain[tw] = {"links": [int(ids[k]) for k in trunk[:cut]]}
+    ms = np.asarray([s for v in domain.values() for s in v["links"]]) - 1
+    m = ms.size
+    # hydraulic geometry: bottom width ~ 3 sqrt(Q) for the flow of a
+    # steady lateral inflow of 1 m3/s per segment upstream
+    width = np.clip(3.0 * np.sqrt(size[ms]), 5.0, 120.0)
+    chan["bw"][ms] = width * rng.uniform(0.8, 1.2, m)
+    chan["tw"][ms] = chan["bw"][ms] * rng.uniform(1.3, 1.8, m)
+    chan["twcc"][ms] = chan["tw"][ms] * rng.uniform(3.0, 6.0, m)
+    chan["n"][ms] = 0.035
+    chan["ncc"][ms] = 0.07
+    chan["s0"][ms] = rng.uniform(2e-5, 2e-4, m)
+    alt = np.zeros(n, np.float32)
+    for i in range(n - 1, -1, -1):        # downstream first
+        base = alt[down[i] - 1] if down[i] > 0 else 1.0
+        alt[i] = base + chan["s0"][i] * chan["dx"][i]
+    rl = RouteLinkData(ids=ids, downstream=down, channel=chan,
+                       waterbody=np.full(n, -9999, np.int64),
+                       waterbody_null=-9999,
+                       gages=np.full(n, "", dtype=object), alt=alt)
+
+    # natural sections: 9 points, the floor at the link's altitude
+    shape = np.array([1.0, 0.75, 0.4, 0.15, 0.0, 0.12, 0.35, 0.7, 1.05])
+    rows = []
+    for tw in tailwaters[1::2]:
+        for s in domain[tw]["links"]:
+            width = float(chan["tw"][s - 1]) * rng.uniform(1.0, 1.5)
+            depth = rng.uniform(3.0, 6.0)
+            x = np.linspace(0.0, width, 9)
+            z = alt[s - 1] + depth * shape
+            rows += [(f"wb-{s}", xi, zi, 0.035) for xi, zi in zip(x, z)]
+    topobathy = pd.DataFrame(rows, columns=["hy_id", "xid_d", "z", "n"])
+    hours = np.arange(30)
+    coastal = {tw: 2.5 + 0.8 * np.sin(hours / 3.0 + k)
+               for k, tw in enumerate(tailwaters[:n_coastal])}
+    return dict(rl=rl, domain=domain, topobathy=topobathy, coastal=coastal,
+                tailwaters=tailwaters)
