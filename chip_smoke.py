@@ -41,7 +41,7 @@ Run from the root of a checkout, with no arguments:
    B2, plain and B1 ms per pattern (f32).
 6. Strict engine, card against CPU: ``route_stepped``'s strict fixed-point
    mode (accelerator "auto", block skip on) on a 25,000-segment network
-   with 25 reservoirs and 50 gages, 6 steps from a warm state, f64 (rtol
+   with 25 reservoirs and 50 gages, 3 steps from a warm state, f64 (rtol
    1e-9, atol 1e-8) and f32 (the f32 bar, at most 1e-3 of the values past
    rtol/atol 1e-4); the card's B1/B2 launches equal the driver's own MC
    call counts.
@@ -94,7 +94,7 @@ Run from the root of a checkout, with no arguments:
    Each: the card against the port's CPU run at R=256 over 4 steps (f64
    rtol 1e-9 on all but 1e-5 of the values; f32 the f32 bar on q and
    surfaces within 1e-3 m; all finite), seg-ts/s (valid nodes x steps /
-   the seconds of one run after a 2-step warm-up: 24 steps for the
+   the seconds of one run after a 2-step warm-up: 12 steps for the
    uniform-table leg, 6 for the others), sub-steps, sweeps per sub-step,
    Newton iterations per ``rtsafe`` call, host syncs per sub-step, device
    kernels per sub-step and the idle share of one profiled 1-step run,
@@ -120,7 +120,7 @@ Run from the root of a checkout, with no arguments:
    and the idle share and kernels per sub-step of one profiled 1-step
    run; over 1 step the batch against solo runs of its 8 trees in
    float64 with exact tables (rtol 1e-12; in float32 trees of different
-   widths leave last-bit differences); on 2 trees over 4 steps the card
+   widths leave last-bit differences); on 2 trees over 2 steps the card
    against the CPU, float64
    with exact tables at phase 10's f64 bar and float32 with uniform
    tables at its f32 bar.  (b) The routing BMI
@@ -135,6 +135,35 @@ Run from the root of a checkout, with no arguments:
    point (phase 6's strict f32 bar), with sweeps per step; B1 launches
    per update equal to the engine's count; 2 updates of one step in each
    mode on the card against the CPU.
+12. Multi-GPU routing on one card (``troute_torch/parallel``).  The card's
+   host has one GPU and NCCL refuses two ranks on one GPU, so: (a) phase
+   4's CONUS set-up (2,729,077 segments, f32, dt 300 s, 24 steps, qts
+   12) in a 1-rank NCCL group on ``cuda:0``: ``route_sharded_global`` in
+   short mode bit for bit equal to ``route_stepped``, B1 launched once per
+   step, the seg-ts/s of the sharded short driver and of
+   ``route_stepped`` in interleaved turns, and the partition's host
+   seconds at 1 and 4 ranks; (b) one spawn of 4 gloo ranks, every rank
+   on ``cuda:0`` (gloo sends host tensors, so the exchange is staged
+   through host memory): phase 9's regional network at world sizes 2 and
+   4, ``balanced_assignment`` with one more cut inside a basin, 24 short
+   steps in f64 and f32 and 6 strict f32 steps from a warm state against
+   ``route_stepped`` on the card (phase 3's f64 bar and f32 share,
+   phase 6's strict f32 bar), ``neighbor`` = ``allgather`` bit for bit,
+   every rank's result the same, B1 launches per rank equal to its
+   drivers' counts, no JAX in any rank; cut edges, exchange rounds, ms
+   per step of the short driver, one exchange and B1 on the boundary rows
+   (shared-card, host-staged numbers: they do not measure scaling); (c)
+   on 2 of those ranks, ``run_mainstem``'s sharded branch (phase 11's 8
+   trees, float64 exact tables, 1 step) against the unsharded batch (rtol
+   1e-12); (d) the command line with ``parallel_compute_method:
+   sharded`` in 2 gloo ranks on a 25,000-flowpath domain (phase 8's
+   control file, 6 steps) against the single-process command on the card
+   (the f32 bar): rank 0 writes the files, rank 1 none, and each rank's
+   B1 launches equal its command's MC count.  The phase-12 launches of
+   the result line are the sharded drivers' own: the world-size-1
+   ``route_sharded_global`` call, the ranks' cases of (b) and (c) and the
+   ranks of (d); the references, the timed turns and the single-process
+   command are not counted.
 
 ``--phases LIST`` (e.g. ``9,10`` or ``2-8``) runs only those phases after
 phase 1 and then prints no result lines; the default runs them all.
@@ -146,16 +175,19 @@ configuration over N steps
 the whole script would then outrun its time limit on a slow host).
 
 ``--baseline DIR`` (a checkout of an earlier commit, e.g. unpacked with
-``git archive``: its B2 is one CUDA block per flag block and takes the
-first C interface, with no work counter; its B1 is either one thread per
-lane with that interface or the persistent grid with trips, evaluations
-and the counter) also builds ``DIR/troute_torch/csrc/mc_secant.cu`` and
+``git archive``: its B1 is either one thread per lane or the persistent
+grid with trips, evaluations and the work counter; its B2 either one
+CUDA block per flag block with no counter or the persistent grid with
+them, declared through ``MC_SECANT_SKIP_ENTRY``) also builds ``DIR/troute_torch/csrc/mc_secant.cu`` and
 times both of its kernels in turns with this checkout's (baseline, kernel,
 kernel, baseline), bit for bit: B1 on the inputs of phases 2 and 4 and on
 each step of one cold and one warm phase-4 window, B2 on phase 7's
-captured skip sweep.  At the end it runs phase 4's windows of ``DIR``'s
-``chip_smoke.py`` and of this one, each in a process of its own, in the
-same turns, for the cold and warm seg-ts/s of both.
+captured skip sweep.  At the end it runs this script's phase-4 windows,
+phase-7 strict windows and 24 short steps of ``route_stepped`` on phase
+9's regional network with ``DIR``'s package and with this one's, each in
+a process of its own, in the same turns, for the seg-ts/s (ms per step)
+of both; phase 4 logs its network's remainder layers (the ``index_add``
+calls of one upstream sum's remainder).
 
 Every check raises on failure, so the script exits non-zero; so does a
 run that imported any module of JAX, of the JAX package or its
@@ -516,16 +548,20 @@ class Baseline:
     called through their C interfaces.  B1 (``__call__``): 13 inputs, dt, 6
     outputs, then, where the source's B1 is the persistent grid, trips,
     evaluations and the work counter, then nseg and the stream.  B2
-    (``skip``, f32, one CUDA block per flag block): the 6 ``prev`` and the
-    int32 block flags after the outputs, no counter."""
+    (``skip``, f32): the 6 ``prev`` and the int32 block flags after the
+    outputs; where the source declares its entries through
+    ``MC_SECANT_SKIP_ENTRY`` (the persistent B2), trips, evaluations and
+    the work counter follow, else (one CUDA block per flag block) none."""
 
     def __init__(self, src: Path):
         from troute_torch import _build
         path, _ = _build.compile_cached(_build.find_nvcc(),
                                         _build.NVCC_FLAGS, src)
         self.lib, self.fn = ctypes.CDLL(str(path)), {}
-        self.counter = re.search(r"int mc_secant_f32\([^)]*int32_t\* next",
-                                 src.read_text()) is not None
+        text = src.read_text()
+        self.skip_counter = "MC_SECANT_SKIP_ENTRY(" in text
+        self.counter = self.skip_counter or re.search(
+            r"int mc_secant_f32\([^)]*int32_t\* next", text) is not None
         for dt, name, c_real in (("float32", "mc_secant_f32", ctypes.c_float),
                                  ("float64", "mc_secant_f64",
                                   ctypes.c_double)):
@@ -537,7 +573,8 @@ class Baseline:
             self.fn[dt] = fn
         self.skip_fn = self.lib.mc_secant_skip_f32
         self.skip_fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_float]
-                                 + [ctypes.c_void_p] * 13
+                                 + [ctypes.c_void_p]
+                                 * (16 if self.skip_counter else 13)
                                  + [ctypes.c_int64, ctypes.c_void_p])
         self.skip_fn.restype = ctypes.c_int
         log(f"built {path.name} from {src} (its B1 "
@@ -549,9 +586,13 @@ class Baseline:
         n_out = 6 if diag else 3
         out = [torch.empty_like(args[0]) for _ in range(n_out)]
         ptrs = [o.data_ptr() for o in out] + [None] * (6 - n_out) \
-            + [p.data_ptr() for p in prev[:n_out]] + [None] * (6 - n_out)
+            + [p.data_ptr() for p in prev[:n_out]] + [None] * (6 - n_out) \
+            + [flags.data_ptr()]
+        if self.skip_counter:
+            counter = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+            ptrs += [None, None, counter.data_ptr()]
         rc = self.skip_fn(*[a.data_ptr() for a in args], DT, *ptrs,
-                          flags.data_ptr(), args[0].shape[0],
+                          args[0].shape[0],
                           torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"baseline B2 launch failed: CUDA error {rc}")
@@ -1005,7 +1046,8 @@ def main_path_windows(device, n: int, nts: int, smi: str) -> dict:
                                assume_short_ts=True, kernel="pallas")
     log(f"phase 4: setup {time.perf_counter() - t0:.1f} s (N={n}, "
         f"n_pad={net.uplan.n_pad}, shifts={len(net.uplan.shifts)}, "
-        f"remainder={int(net.uplan.rem_dst.shape[0])})")
+        f"remainder={int(net.uplan.rem_dst.shape[0])}, remainder layers "
+        f"{remainder_layers(net.uplan)})")
 
     def window(q, d, qlat):
         t0 = time.perf_counter()
@@ -1138,27 +1180,108 @@ def b1_window_turns(ctx: dict, baseline, smi: str) -> None:
 _WINDOWS_LINE = re.compile(
     r"cold best ([\d.]+) s median ([\d.]+) s -> ([\d.e+]+) seg-ts/s; warm "
     r"best ([\d.]+) s median ([\d.]+) s -> ([\d.e+]+) seg-ts/s")
+_STRICT_LINE = re.compile(
+    r"phase 7: (skip off|skip on|accel off): best ([\d.]+) s median "
+    r"([\d.]+) s -> ([\d.e+]+) seg-ts/s \(median ([\d.e+]+)\); sweeps per "
+    r"step ([\d.]+)")
+_REGION_LINE = re.compile(r"regional route_stepped: (.*)$", re.M)
+
+
+def remainder_layers(uplan) -> int:
+    """``index_add`` calls of one upstream sum's remainder: its layers
+    (``upstream_plan.remainder_layers``), 1 for a plan added in one call
+    (before the layers), 0 without remainder edges."""
+    if not uplan.rem_dst.shape[0]:
+        return 0
+    return len(getattr(uplan, "rem_cuts", ())) + 1
+
+
+def regional_steps(device, smi: str, nts: int = 24, reps: int = 5,
+                   pairs: int = 10) -> None:
+    """``route_stepped`` in short mode, f32, with gage nudging and level
+    pools, on phase 9's regional network (the networks of phases 3, 9 and
+    12 have remainder edges; phase 4's has none): ms per step, best and
+    median of ``reps`` runs.  Where the plan adds its remainder in
+    layers, also ``pairs`` pairs of runs with the layers and with the
+    remainder in one ``index_add`` (the same terms, in any order on the
+    card), alternating which runs first."""
+    import torch
+    from troute_torch.routing import engine
+    case = _network(N_REGION, n_res=300, n_gage=300, seed=9,
+                    conn=regional_network(N_REGION, N_BASINS, seed=9))
+    args = _route_args(device, torch.float32, case, nts)
+    engine.route_stepped(*args, collect=False)
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.route_stepped(*args, collect=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / nts)
+    log(f"regional route_stepped: N={N_REGION}, remainder edges "
+        f"{int(args[0].uplan.rem_dst.shape[0])}, remainder layers "
+        f"{remainder_layers(args[0].uplan)}, short f32 {nts} steps: best "
+        f"{min(ms):.3f} ms median {statistics.median(ms):.3f} ms per step  "
+        f"[{smi}]")
+    net = args[0]
+    if remainder_layers(net.uplan) < 2:
+        return
+    runs = {"layers": args,
+            "one": (net._replace(uplan=net.uplan._replace(rem_cuts=())),)
+            + args[1:]}
+    ms = {k: [] for k in runs}
+    for i in range(pairs):
+        for name in (("layers", "one") if i % 2 == 0 else ("one", "layers")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.route_stepped(*runs[name], collect=False)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / nts)
+    wins = sum(a < b for a, b in zip(ms["layers"], ms["one"]))
+    log(f"regional remainder pairs: {pairs} pairs, ms per step, layers "
+        f"{[round(t, 3) for t in ms['layers']]} (median "
+        f"{statistics.median(ms['layers']):.3f}), one index_add "
+        f"{[round(t, 3) for t in ms['one']]} (median "
+        f"{statistics.median(ms['one']):.3f}); the layers faster in {wins} "
+        f"of {pairs} pairs  [{smi}]")
+
+
+def turn_windows(device, n: int, nts: int, smi: str) -> None:
+    """One turn of ``main_path_turns``, with whichever ``troute_torch`` is
+    first on ``sys.path``: phase 4's windows, phase 7's strict windows
+    from their warm state, and ``regional_steps``."""
+    import troute_torch
+    log(f"turn package: {Path(troute_torch.__file__).parent}")
+    res = main_path_windows(device, n, nts, smi)
+    strict_windows(device, res["setup"], smi)
+    del res
+    regional_steps(device, smi)
 
 
 def main_path_turns(base: Path, n: int, nts: int, smi: str) -> None:
-    """Phase 4's windows of the checkout ``base`` (its ``chip_smoke.py``'s
-    ``main_path_windows``, or ``phase_main_path`` where it has none) and of
-    this one (``main_path_windows``), each in a
-    process of its own, in turns: baseline, this, this, baseline.  Logs
-    each turn's cold and warm windows (best and median s, seg-ts/s)."""
-    calls = {"baseline": (base, f"(getattr(chip_smoke, 'main_path_windows', "
-                                f"None) or chip_smoke.phase_main_path)("
-                                f"'cuda:0', {n}, {nts}, {smi!r})"),
-             "this": (ROOT, f"chip_smoke.main_path_windows('cuda:0', {n}, "
-                            f"{nts}, {smi!r})")}
-    for turn, name in enumerate(("baseline", "this", "this", "baseline")):
-        root, call = calls[name]
-        code = (f"import sys; sys.path[:0] = [{str(root)!r}, "
-                f"{str(root / 'tests')!r}]; import chip_smoke; {call}")
+    """``turn_windows`` of this script on the package of the checkout
+    ``base`` and on this checkout's, each in a process of its own, in
+    turns: baseline, this, this, baseline.  Logs each turn's phase-4 cold
+    and warm windows, phase-7 strict windows (best and median s,
+    seg-ts/s) and ``regional_steps``."""
+    base = base.resolve()
+    for turn, (name, root) in enumerate((("baseline", base), ("this", ROOT),
+                                         ("this", ROOT),
+                                         ("baseline", base))):
+        code = (f"import sys; sys.path[:0] = [{str(root)!r}]; "
+                f"import importlib.util as u; s = u.spec_from_file_location("
+                f"'chip_smoke', {str(ROOT / 'chip_smoke.py')!r}); m = "
+                f"u.module_from_spec(s); sys.modules['chip_smoke'] = m; "
+                f"s.loader.exec_module(m); m.turn_windows('cuda:0', {n}, "
+                f"{nts}, {smi!r})")
         proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                               capture_output=True, text=True, timeout=600)
         m = _WINDOWS_LINE.search(proc.stdout)
-        if proc.returncode != 0 or m is None:
+        strict = _STRICT_LINE.findall(proc.stdout)
+        region = _REGION_LINE.search(proc.stdout)
+        if proc.returncode != 0 or m is None or len(strict) != 3 \
+                or region is None or f"turn package: {root}" not in \
+                proc.stdout:
             raise AssertionError(f"main-path turn {turn} ({name}) failed: "
                                  f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
         cb, cm, cr, wb, wm, wr = m.groups()
@@ -1166,6 +1289,11 @@ def main_path_turns(base: Path, n: int, nts: int, smi: str) -> None:
             f"{cm} s -> {cr} seg-ts/s (median "
             f"{n * nts / float(cm):.4e}); warm best {wb} s median {wm} s -> "
             f"{wr} seg-ts/s (median {n * nts / float(wm):.4e})  [{smi}]")
+        log(f"phase 7 turns: {turn} {name}: " + "; ".join(
+            f"{k} best {b} s median {md} s -> {r} seg-ts/s (median {mr}), "
+            f"sweeps per step {sw}" for k, b, md, r, mr, sw in strict)
+            + f"  [{smi}]")
+        log(f"regional turns: {turn} {name}: {region.group(1)}")
 
 
 def warm_step_args(net, cp, q, d, qlat):
@@ -1364,18 +1492,17 @@ def profile_window(fn, host_ops: bool = True) -> dict:
                 counts=counts)
 
 
-def phase_strict_main_path(device, dev: dict, ctx: dict,
-                           baseline=None) -> dict:
+def strict_windows(device, ctx: dict, smi: str) -> dict:
     """bench.py:482-515 and benchmarks/bench_strict_skip.py on the port:
     12-step strict windows from phase 4's warm state, block skip off and
     on (accelerator "auto", on), and the plain Jacobi sweeps (accelerator
-    off) beside them, in interleaved turns, the state handed forward."""
+    off) beside them, in interleaved turns, the state handed forward.
+    Returns the launches, the times and ``window(name, qlat)``."""
     import torch
     from troute_torch.ops import muskingum_cuda as mcc
-    from troute_torch.ops.muskingum import solve_block_skip
     from troute_torch.routing import engine
 
-    nts, n, smi = 12, int(ctx["q"].shape[0]), dev["smi"]
+    nts, n = 12, int(ctx["q"].shape[0])
     zeros1 = torch.zeros(1, dtype=torch.float32, device=device)
     cfgs = {name: engine.RoutingConfig(
                 dt=DT, nts=nts, qts_subdivisions=2, assume_short_ts=False,
@@ -1426,10 +1553,25 @@ def phase_strict_main_path(device, dev: dict, ctx: dict,
             f"seg-ts/s (median {n * nts / statistics.median(ts):.4e}); "
             f"sweeps per step {statistics.mean(sweeps[name]):.2f} "
             f"{sweeps[name]}; all {[round(t, 4) for t in ts]}  [{smi}]")
+    return dict(launched=launched, times=times, window=window)
+
+
+def phase_strict_main_path(device, dev: dict, ctx: dict,
+                           baseline=None) -> dict:
+    """``strict_windows``, the device's idle share of one window of each
+    form, and B2 on one captured skip sweep against its plain version."""
+    import torch
+    from troute_torch.ops import muskingum_cuda as mcc
+    from troute_torch.ops.muskingum import solve_block_skip
+    from troute_torch.routing import engine
+
+    smi = dev["smi"]
+    sw = strict_windows(device, ctx, smi)
+    launched, times, window = sw["launched"], sw["times"], sw["window"]
 
     # the device's idle share: busy time of one profiled window against
     # the median unprofiled window (the profiler inflates the host side)
-    for name in cfgs:
+    for name in times:
         prof = profile_window(lambda: window(name, ctx["qlats"][1]))
         wall_ms = 1e3 * statistics.median(times[name])
         idle = ("not measured (the profiler saw no device activity)"
@@ -1923,7 +2065,7 @@ def phase_level_scan(device, dev: dict, n: int, n_basins: int, nts: int,
     args6 = args[:3] + (args[3]._replace(nts=6),) + args[4:]
     mcc.LAUNCHES = 0
     times = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         engine.route(*args)
         torch.cuda.synchronize()
@@ -1933,7 +2075,7 @@ def phase_level_scan(device, dev: dict, n: int, n_basins: int, nts: int,
     b1_n = sum(v for k, v in prof["counts"].items() if "mc_secant" in k)
     b1_ms = sum(v for k, v in prof["by_name"].items() if "mc_secant" in k)
     if b1_n != 6 * out["rows"] \
-            or mcc.LAUNCHES != (3 * nts + 6) * out["rows"]:
+            or mcc.LAUNCHES != (2 * nts + 6) * out["rows"]:
         raise AssertionError(f"the timed runs launched {mcc.LAUNCHES} B1 "
                              f"kernels, the profiled run traced {b1_n}")
     out["launches"] += mcc.LAUNCHES
@@ -2018,7 +2160,7 @@ def check_share(got, want, what: str, rtol: float, share: float) -> dict:
 DIFFUSIVE_CONFIGS = (
     # name, dtype, corrector, uniform table entries, reaches (None: the
     # phase's R), routing steps of the timed run
-    ("f32 jacobi uniform-128", "float32", "jacobi", 128, None, 24),
+    ("f32 jacobi uniform-128", "float32", "jacobi", 128, None, 12),
     ("f32 jacobi exact", "float32", "jacobi", None, None, 6),
     ("f64 jacobi exact", "float64", "jacobi", None, None, 6),
     ("f64 wavefront", "float64", "wavefront", None, 256, 6),
@@ -2679,6 +2821,403 @@ def phase_bmi(device, dev: dict, n: int, n_basins: int, n_lakes: int,
     return out
 
 
+# ------------------------------------------------------------- phase 12
+
+def _conus_world_1(device, dev: dict, n: int, nts: int) -> dict:
+    """Phase 12 (a): ``route_sharded_global`` in a 1-rank NCCL group on
+    phase 4's CONUS set-up against ``route_stepped``, bit for bit; the
+    partition's host seconds at 1 and 4 ranks; seg-ts/s of the sharded
+    short driver and of ``route_stepped`` in interleaved turns."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from troute_torch import synthetic
+    from troute_torch.network.topology import build_topology
+    from troute_torch.ops import muskingum_cuda as mcc
+    from troute_torch.ops.levelpool import LevelpoolParams
+    from troute_torch.parallel.group import init_group
+    from troute_torch.parallel.partition import (balanced_assignment,
+                                                 partition_network)
+    from troute_torch.parallel.sharded_engine import (
+        build_sharded_inputs, route_sharded_global)
+    from troute_torch.parallel.stepped_engine import route_sharded_stepped
+    from troute_torch.routing import engine
+    smi = dev["smi"]
+    f32 = torch.float32
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    ids, down = synthetic.synthetic_conus(n)
+    topo = build_topology(ids, down)
+    chan = synthetic.channel_params(n, rng)
+    q0 = rng.uniform(0.5, 5.0, n).astype(np.float32)
+    d0 = rng.uniform(0.05, 0.8, n).astype(np.float32)
+    qlat = rng.uniform(0.1, 2.0, (2, n)).astype(np.float32)
+    cfg = engine.RoutingConfig(dt=DT, nts=nts, qts_subdivisions=nts // 2,
+                               assume_short_ts=True)
+    setup_s = time.perf_counter() - t0
+    parts = {}
+    for w in (1, 4):
+        t0 = time.perf_counter()
+        a = balanced_assignment(topo, w)
+        t1 = time.perf_counter()
+        part = partition_network(topo, w, a)
+        parts[w] = dict(part=part, assign_s=t1 - t0,
+                        partition_s=time.perf_counter() - t1)
+    p4 = parts[4]["part"]
+    log(f"phase 12: CONUS N={n} (setup {setup_s:.1f} s); host partition "
+        f"at 1 rank: balanced_assignment {parts[1]['assign_s']:.2f} s, "
+        f"partition_network {parts[1]['partition_s']:.2f} s; at 4 ranks: "
+        f"{parts[4]['assign_s']:.2f} s and {parts[4]['partition_s']:.2f} s "
+        f"({p4.cut_edges} cut edges, {p4.perm_pairs.shape[0]} exchange "
+        f"rounds, {p4.n_local} nodes per rank)")
+    part = parts[1]["part"]
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    args = (engine.network_arrays_from_topology(topo, device=device),
+            engine.ChannelParams.from_arrays(device=device, dtype=f32,
+                                             **chan),
+            LevelpoolParams(*[torch.ones(1, dtype=f32, device=device)] * 9),
+            cfg, t(q0), t(d0), torch.zeros(1, dtype=f32, device=device),
+            t(qlat))
+    out = dict(launches=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group(device, "nccl", init_method=f"file://{tmp}/store",
+                   rank=0, world_size=1)
+        try:
+            mcc.LAUNCHES = 0
+            t0 = time.perf_counter()
+            got = route_sharded_global(None, topo, chan, None, cfg, q0, d0,
+                                       np.zeros(0, np.float32), qlat,
+                                       part=part, dtype=f32, device=device)
+            torch.cuda.synchronize()
+            global_s = time.perf_counter() - t0
+            if not mcc.LAUNCHES == got["mc_calls"] == nts:
+                raise AssertionError(
+                    f"phase 12: world size 1 launched {mcc.LAUNCHES} B1 "
+                    f"kernels, the driver counted {got['mc_calls']}, for "
+                    f"{nts} steps")
+            out["launches"] += mcc.LAUNCHES
+            ref = engine.route_stepped(*args)
+            for k, g, w in (("flowveldepth", got["flowveldepth"],
+                             ref["flowveldepth"]),
+                            ("q", got["state"].q, ref["state"].q),
+                            ("depth", got["state"].depth,
+                             ref["state"].depth)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"phase 12: world size 1 {k} "
+                                         "differs from route_stepped")
+            del got, ref
+            inp = build_sharded_inputs(part, topo, chan, None, q0, d0, {},
+                                       qlat, rank=0, device=device,
+                                       dtype=f32)
+
+            def stepped():
+                engine.route_stepped(*args)
+
+            def sharded():
+                route_sharded_stepped(
+                    None, inp, DT, nts, qts_subdivisions=cfg.qts_subdivisions,
+                    band_shifts=part.band_shifts)
+
+            times = {"route_stepped": [], "sharded": []}
+            for fn in (stepped, sharded):
+                fn()
+            for _ in range(3):
+                for name, fn in (("route_stepped", stepped),
+                                 ("sharded", sharded), ("sharded", sharded),
+                                 ("route_stepped", stepped)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[name].append(time.perf_counter() - t0)
+        finally:
+            dist.destroy_process_group()
+    rate = {k: n * nts / min(v) for k, v in times.items()}
+    med = {k: n * nts / statistics.median(v) for k, v in times.items()}
+    out.update(partition_s=parts[1]["partition_s"],
+               partition_s_4=parts[4]["partition_s"],
+               assign_s_4=parts[4]["assign_s"], global_s=global_s,
+               seg_ts_s=rate, seg_ts_s_median=med,
+               ratio=rate["sharded"] / rate["route_stepped"])
+    log(f"phase 12: CONUS world size 1 (NCCL, cuda:0), f32, {nts} steps: "
+        f"route_sharded_global bit for bit equal to route_stepped (fvd and "
+        f"state), B1 launches {nts} = steps = the driver's count; the "
+        f"whole call {global_s:.3f} s (host plan and gather included); in "
+        f"6 interleaved turns each, warm, best (median) seg-ts/s: sharded "
+        f"driver {rate['sharded']:.4e} ({med['sharded']:.4e}), "
+        f"route_stepped {rate['route_stepped']:.4e} "
+        f"({med['route_stepped']:.4e}), ratio {out['ratio']:.3f}  [{smi}]")
+    return out
+
+
+def _global_values(res: dict) -> np.ndarray:
+    """``_run_values`` of a rank's ``route_sharded_global`` result."""
+    st = res["state"]
+    return np.concatenate([np.asarray(a).ravel() for a in (
+        res["fvd"], res["nudge"], st["q"], st["depth"], st["res_elev"],
+        st["lastobs_val"], st["lastobs_time"])])
+
+
+def _forced_cut(assign: np.ndarray) -> np.ndarray:
+    """``assign`` with one more cut inside a basin: the first rank's last
+    40 rows (post-order: the top of a tree) move to the second rank."""
+    a = assign.copy()
+    a[np.flatnonzero(a == 0)[-40:]] = 1
+    return a
+
+
+def _sharded_region(device, dev: dict, n: int, n_basins: int, nts: int,
+                    nts_strict: int, n_trees: int) -> dict:
+    """Phase 12 (b) and (c): 4 gloo ranks on ``device`` (one spawn); the
+    regional network at world sizes 2 and 4 against ``route_stepped`` on
+    the card, and ``run_mainstem``'s sharded branch on 2 ranks against
+    the unsharded batch."""
+    import tempfile
+    import torch
+    from troute_torch.config.schema import HybridParameters
+    from troute_torch.parallel import ranks
+    from troute_torch.parallel.group import spawn_ranks
+    from troute_torch.parallel.partition import (balanced_assignment,
+                                                 partition_network)
+    from troute_torch.routing import engine
+    from troute_torch.routing.hybrid import run_mainstem
+    smi = dev["smi"]
+    case = _network(n, n_res=300, n_gage=300, seed=9,
+                    conn=regional_network(n, n_basins, seed=9))
+    topo, chan, lp, q0, d0, elev0, qlat, gage = case
+    res_params = np.stack(lp, axis=1)
+    assign = {w: _forced_cut(balanced_assignment(topo, w)) for w in (2, 4)}
+    out = dict(launches=0)
+    start32 = {k: v.cpu().numpy() for k, v in _state_dict(
+        _warm_state(device, torch.float32, case)).items()}
+    short = engine.RoutingConfig(dt=DT, nts=nts, qts_subdivisions=12,
+                                 assume_short_ts=True)
+    strict = engine.RoutingConfig(dt=DT, nts=nts_strict, qts_subdivisions=12,
+                                  assume_short_ts=False,
+                                  strict_iterative=True,
+                                  strict_block_skip=False)
+
+    def gcase(w, dtype, cfg, start=None, exchange="neighbor"):
+        s = start or dict(q=q0, depth=d0, res_elev=elev0,
+                          lastobs_val=gage["lastobs_val"],
+                          lastobs_time=gage["lastobs_time"])
+        return dict(kind="global", world=w, dtype=dtype, topo=topo,
+                    chan=chan, res_params=res_params, cfg=cfg, q0=s["q"],
+                    depth0=s["depth"], elev0=s["res_elev"], qlat=qlat,
+                    da=dict(rows=gage["rows"], obs=gage["obs"],
+                            lastobs_val=s["lastobs_val"],
+                            lastobs_time=s["lastobs_time"],
+                            decay_coeff=120.0),
+                    assignment=assign[w], exchange=exchange)
+
+    names, cases = [], []
+    for w in (2, 4):
+        for name, c in ((f"w{w} f64", gcase(w, "float64", short)),
+                        (f"w{w} f64 allgather",
+                         gcase(w, "float64", short, exchange="allgather")),
+                        (f"w{w} f32", gcase(w, "float32", short)),
+                        (f"w{w} strict f32",
+                         gcase(w, "float32", strict, start32))):
+            names.append(name)
+            cases.append(c)
+    with tempfile.TemporaryDirectory() as tmp:
+        hcase = _hybrid_case(device, n, n_basins, n_trees, Path(tmp))
+        hyb, htopo = hcase["hyb"], hcase["topo"]
+        fvd1, _ = _hybrid_mc(device, hcase, 1)
+        hp64 = HybridParameters(diffusive_dtype="float64",
+                                diffusive_table_nel=0)
+        margs = (hyb, fvd1, np.asarray(htopo.ids), hcase["mc"]["q0"], 1.0,
+                 DT, 12, hp64, device)
+        t0 = time.perf_counter()
+        alone = run_mainstem(*margs)
+        alone_s = time.perf_counter() - t0
+        names.append("mainstem")
+        cases.append(dict(kind="mainstem", world=2, args=margs))
+        timed = [names.index("w2 f32"), names.index("w4 f32")]
+        t0 = time.perf_counter()
+        procs = spawn_ranks(ranks.run_and_time, 4, backend="gloo",
+                            device=device, timeout=900,
+                            args=(cases, timed, device))
+        spawn_s = time.perf_counter() - t0
+    res = {k: [p["cases"][i] for p in procs] for i, k in enumerate(names)}
+    for r, p in enumerate(procs):
+        if p["foreign"]:
+            raise AssertionError(f"phase 12: rank {r} imported "
+                                 f"{p['foreign']}")
+        want = sum(c["mc_calls"] for c in p["cases"]
+                   if c is not None and "mc_calls" in c)
+        if p["launches_cases"] != want:
+            raise AssertionError(f"phase 12: rank {r} launched "
+                                 f"{p['launches_cases']} B1 kernels, its "
+                                 f"drivers counted {want}")
+        # the sharded drivers' own launches (not the timing runs)
+        out["launches"] += p["launches_cases"]
+    refs = {}
+    for key, dtype, cfg_kw in (("f64", torch.float64, {}),
+                               ("f32", torch.float32, {}),
+                               ("strict f32", torch.float32,
+                                dict(strict=True, start=start32,
+                                     strict_block_skip=False))):
+        steps = nts_strict if "strict" in key else nts
+        refs[key] = _run_values(_route(device, dtype, case, steps, **cfg_kw))
+    lines = {}
+    for w in (2, 4):
+        parts = res[f"w{w} f64"]
+        for r in range(1, w):
+            for k in names:
+                if k.startswith(f"w{w}") and not np.array_equal(
+                        res[k][r]["fvd"], res[k][0]["fvd"]):
+                    raise AssertionError(f"phase 12: {k}: rank {r}'s "
+                                         "result differs from rank 0's")
+        for r in range(w):
+            a, b = res[f"w{w} f64"][r], res[f"w{w} f64 allgather"][r]
+            if not np.array_equal(_global_values(a), _global_values(b)):
+                raise AssertionError(f"phase 12: world size {w}: neighbor "
+                                     "and allgather exchanges differ")
+        st64 = check_f64_network(_global_values(parts[0]), refs["f64"],
+                                 f"phase 12 world size {w} f64")
+        st32 = check_f32_bar(_global_values(res[f"w{w} f32"][0]),
+                             refs["f32"], f"phase 12 world size {w} f32",
+                             max_share=1e-5)
+        strict_txt = check_strict_f32(
+            _global_values(res[f"w{w} strict f32"][0]), refs["strict f32"],
+            f"phase 12 world size {w} strict f32")
+        tm = [procs[r]["times"][timed[(2, 4).index(w)]] for r in range(w)]
+        ms_step = max(min(x["ms_step"]) for x in tm)
+        exch = [x["exchange_ms"] for x in tm]
+        bnd = [x["boundary_ms"] for x in tm if x["boundary_ms"] is not None]
+        mc_calls = [res[f"w{w} f32"][r]["mc_calls"] for r in range(w)]
+        lines[w] = dict(cut_edges=parts[0]["cut_edges"],
+                        rounds=parts[0]["rounds"], ms_step=ms_step,
+                        exchange_ms=max(exch), boundary_ms=max(bnd or [0.0]),
+                        n_boundary=[x["n_boundary"] for x in tm],
+                        mc_calls=mc_calls,
+                        strict_sweeps=res[f"w{w} strict f32"][0][
+                            "strict_sweeps"])
+        log(f"phase 12: regional N={n}, world size {w} (gloo, every rank "
+            f"on {device}), balanced_assignment + one forced mid-basin cut: "
+            f"{parts[0]['cut_edges']} cut edges, {parts[0]['rounds']} "
+            f"exchange rounds, boundary rows per rank "
+            f"{lines[w]['n_boundary']}; every rank returned the same "
+            f"result; neighbor = allgather bit for bit; against "
+            f"route_stepped on the card: f64 {nts} steps off rtol 1e-9 at "
+            f"{st64['off']} of {st64['n']} values (max rel {st64['max']:.3g})"
+            f", f32 {nts} steps median {st32['median']:.3g} p95 "
+            f"{st32['p95']:.3g} max {st32['max']:.3g}, strict f32 "
+            f"{nts_strict} steps from a warm state: {strict_txt}; sweeps "
+            f"{lines[w]['strict_sweeps']}; B1 launches per rank = the "
+            f"driver's count (f32 short: {mc_calls})")
+        log(f"phase 12: world size {w}, shared-card, host-staged, not "
+            f"scaling: short driver f32 {ms_step:.2f} ms per step (slowest "
+            f"rank, best of 3), one exchange {max(exch):.3f} ms, B1 on the "
+            f"boundary rows {lines[w]['boundary_ms']:.3f} ms  [{smi}]")
+    worst = 0.0
+    want_q, want_d = _mainstem_values(alone)
+    for r in range(2):
+        got_q, got_d = _mainstem_values(res["mainstem"][r])
+        for g, w_ in ((got_q, want_q), (got_d, want_d)):
+            if g.shape != w_.shape:
+                raise AssertionError("phase 12: sharded mainstem shape")
+            worst = max(worst, float(rel_diff(g, w_).max()))
+    if worst > 1e-12:
+        raise AssertionError(f"phase 12: the sharded mainstem differs from "
+                             f"the unsharded batch by {worst:.3g}")
+    case_s = {k: round(v[0]["seconds"], 2) for k, v in res.items()}
+    log(f"phase 12: run_mainstem sharded over 2 gloo ranks, {n_trees} "
+        f"trees, float64 exact tables, 1 step: equal to the unsharded "
+        f"batch to max rel {worst:.3g} (rtol 1e-12; unsharded "
+        f"{alone_s:.1f} s); the 4-rank spawn took {spawn_s:.1f} s, rank "
+        f"0's host seconds per case {case_s}")
+    out.update(world=lines, mainstem_rel=worst, spawn_s=spawn_s)
+    return out
+
+
+def _sharded_cli(device, dev: dict, n: int, nts: int) -> dict:
+    """Phase 12 (d): the command line with ``parallel_compute_method:
+    sharded`` in 2 gloo ranks on ``device`` against the single-process
+    command on the card."""
+    import copy
+    import tempfile
+    import yaml
+    from troute_torch.parallel import ranks
+    from troute_torch.parallel.group import spawn_ranks
+    flags = ["--cpu"] if device == "cpu" else []
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp) / "cli"
+        case = _cli_domain(base, n, ("csv",))
+        cfg = copy.deepcopy(case["cfg"])
+        cfg["compute_parameters"]["forcing_parameters"].update(
+            nts=nts, max_loop_size=1)
+        single = _cli_run(base, cfg, "single.yaml", *flags)
+        sh = copy.deepcopy(cfg)
+        sh["compute_parameters"]["parallel_compute_method"] = "sharded"
+        sh["output_parameters"]["csv_output"]["csv_output_folder"] = \
+            "out_sharded"
+        sh["output_parameters"]["lite_restart"][
+            "lite_restart_output_directory"] = "restart_sharded"
+        with open(base / "sharded.yaml", "w") as f:
+            yaml.safe_dump(sh, f)
+        t0 = time.perf_counter()
+        procs = spawn_ranks(ranks.cli_main, 2, backend="gloo", device=device,
+                            timeout=600,
+                            args=(["-f", str(base / "sharded.yaml"),
+                                   *flags],))
+        spawn_s = time.perf_counter() - t0
+        got = procs[0]
+        for r, p in enumerate(procs):
+            if p["foreign"]:
+                raise AssertionError(f"phase 12 (d): rank {r} imported "
+                                     f"{p['foreign']}")
+            if not np.array_equal(p["fvd"], got["fvd"]):
+                raise AssertionError(f"phase 12 (d): rank {r}'s flows "
+                                     "differ from rank 0's")
+            if p["mc_calls"] is None or p["launches"] != p["mc_calls"]:
+                raise AssertionError(f"phase 12 (d): rank {r} launched "
+                                     f"{p['launches']} B1 kernels, its "
+                                     f"command counted {p['mc_calls']}")
+        if procs[1]["written"]:
+            raise AssertionError(f"phase 12 (d): rank 1 wrote "
+                                 f"{procs[1]['written']}")
+        names = [Path(w).name for w in got["written"]]
+        if names != [w.name for w in single["written"]] or not all(
+                Path(w).is_file() for w in got["written"]):
+            raise AssertionError(f"phase 12 (d): rank 0 wrote {names}, the "
+                                 f"single command {single['written']}")
+        if got["fvd"].shape != (nts, case["ids"].size, 3) \
+                or not np.isfinite(got["fvd"]).all():
+            raise AssertionError("phase 12 (d): fvd shape or not finite")
+        st = check_f32_bar(got["fvd"], single["fvd"],
+                           "phase 12 (d) sharded command vs one process")
+    log(f"phase 12: python -m troute_torch with parallel_compute_method: "
+        f"sharded, N={n}, {nts} steps, in 2 gloo ranks on {device}: every "
+        f"rank returned the same flows, rank 0 wrote {names}, rank 1 "
+        f"nothing; against the single-process command on the card: f32 "
+        f"bar median {st['median']:.3g} p95 {st['p95']:.3g} max "
+        f"{st['max']:.3g}; B1 launches per rank "
+        f"{[p['launches'] for p in procs]} = the command's count; ranks' "
+        f"task_times "
+        f"{got['task_times']}; spawn and run {spawn_s:.1f} s")
+    return dict(launches=sum(p["launches"] for p in procs))
+
+
+def phase_sharded(device, dev: dict, n_conus: int, n: int, n_basins: int,
+                  nts: int, nts_strict: int, n_cli: int) -> dict:
+    """Phase 12: multi-GPU routing on one card (the module docstring)."""
+    t_phase = time.perf_counter()
+    a = _conus_world_1(device, dev, n_conus, nts)
+    b = _sharded_region(device, dev, n, n_basins, nts, nts_strict, 8)
+    d = _sharded_cli(device, dev, n_cli, 6)
+    log(f"phase 12: sharded part {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=a["launches"] + b["launches"] + d["launches"],
+                conus_world_1={k: v for k, v in a.items()
+                               if k != "launches"},
+                region={w: v for w, v in b["world"].items()},
+                mainstem_rel=b["mainstem_rel"], spawn_s=b["spawn_s"])
+
+
 def foreign_modules() -> list[str]:
     """Modules of JAX, of the JAX package or of its ``bench.py`` that this
     process has imported."""
@@ -2701,7 +3240,7 @@ def main() -> int:
                     help="segments of phase 3's network (the default is "
                          "the checked size; another lists the f32 values "
                          "past 5e-2 of that size)")
-    ap.add_argument("--phases", default="2-11",
+    ap.add_argument("--phases", default="2-12",
                     help="phases to run after phase 1, as a range or a "
                          "comma list (e.g. 9,10); the default runs all, "
                          "and only a full run prints the result lines")
@@ -2718,7 +3257,7 @@ def main() -> int:
     for part in opts.phases.split(","):
         lo, _, hi = part.partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    full = phases >= set(range(2, 12)) and opts.engine_segments == 100_000
+    full = phases >= set(range(2, 13)) and opts.engine_segments == 100_000
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     device = "cuda:0"
     torch.cuda.set_device(device)
@@ -2737,7 +3276,7 @@ def main() -> int:
     if 5 in phases:
         phase_skip_vs_plain(device, n32=N_CONUS, n64=1_000_000)
     if 6 in phases:
-        phase_strict_card_vs_cpu(device, n=25_000, nts=6)
+        phase_strict_card_vs_cpu(device, n=25_000, nts=3)
     if 7 in phases:
         s = phase_strict_main_path(device, dev, m["setup"],
                                    baseline=baseline)
@@ -2759,9 +3298,13 @@ def main() -> int:
                             timed_steps=opts.diffusive_steps)
     if 11 in phases:
         hy = phase_hybrid(device, dev, n=N_REGION, n_basins=N_BASINS,
-                          n_trees=8, nts=24, nts_cmp=4)
+                          n_trees=8, nts=24, nts_cmp=2)
         bm = phase_bmi(device, dev, n=N_REGION, n_basins=N_BASINS,
                        n_lakes=300, updates=12, steps=12)
+    if 12 in phases:
+        sh = phase_sharded(device, dev, n_conus=N_CONUS, n=N_REGION,
+                           n_basins=N_BASINS, nts=24, nts_strict=6,
+                           n_cli=25_000)
     if foreign_modules():
         raise AssertionError(f"the port's run imported {foreign_modules()}")
     log(f"total {time.perf_counter() - t_start:.1f} s; imported nothing of "
@@ -2777,12 +3320,13 @@ def main() -> int:
          "replaces": "troute_tpu/ops/muskingum_pallas.py:42",
          "launches": m["launches"] + s["launches"]["mc_secant"]
          + c["launches"]["mc_secant"] + lv["launches"]
-         + hy["launches"] + bm["launches"],
+         + hy["launches"] + bm["launches"] + sh["launches"],
          "launches_by_path": {"phase 4": m["launches"],
                               "phase 7": s["launches"]["mc_secant"],
                               "phase 8": c["launches"]["mc_secant"],
                               "phase 9": lv["launches"],
-                              "phase 11": hy["launches"] + bm["launches"]},
+                              "phase 11": hy["launches"] + bm["launches"],
+                              "phase 12": sh["launches"]},
          "max_abs_err": max(m["max_abs"], r["max_abs"]),
          **{k: m[k] for k in keys}, "library_ms": None,
          "floor_ms": m["floor_ms"], "baseline_ms": m["baseline_ms"],
@@ -2798,7 +3342,7 @@ def main() -> int:
          "launches_by_path": {"phase 4": m["skip_launches"],
                               "phase 7": s["launches"]["mc_secant_skip"],
                               "phase 8": c["launches"]["mc_secant_skip"],
-                              "phase 9": 0, "phase 11": 0},
+                              "phase 9": 0, "phase 11": 0, "phase 12": 0},
          "max_abs_err": s["max_abs"], **{k: s[k] for k in keys},
          "library_ms": None, "floor_ms": s["floor_ms"],
          "baseline_ms": s["baseline_ms"],
@@ -2808,7 +3352,8 @@ def main() -> int:
                                   "command_seg_ts_s", "stages")},
         "diffusive": d,
         "hybrid": {k: v for k, v in hy.items() if k != "launches"},
-        "bmi": {k: v for k, v in bm.items() if k != "launches"}}))
+        "bmi": {k: v for k, v in bm.items() if k != "launches"},
+        "sharded": {k: v for k, v in sh.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

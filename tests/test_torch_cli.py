@@ -20,6 +20,7 @@ observation minus a model flow) is a difference and is held to rtol/atol
 """
 
 import copy
+from pathlib import Path
 
 import h5py
 import numpy as np
@@ -507,17 +508,17 @@ def test_level_scan_default_compute_matches(geopackage_bases):
                             "diffusive_domain": "domain/diffusive.yaml"}},
      "A10/A11"),
     ({"parallel_compute_method": "sharded"}, "A13")])
-def test_waiting_branches_raise(geopackage_bases, tmp_path, monkeypatch,
-                                change, item):
-    """The two branches that waited for ROADMAP A10/A11 and A13.  Hybrid
-    routing now routes: on ``test_torch_hybrid``'s RouteLink domain the
-    port's run equals the JAX command line's (MC rows and the appended
-    mainstem at the f32 bar).  ``sharded`` routes on one device: under
-    ``--cpu`` bit for bit as without it, and at the f32 bar against the
-    JAX command line, which shards over this file's 8 CPU devices.  The
-    port raises, naming A13, only where the JAX command line would shard
-    and it has more than one GPU."""
-    import torch
+def test_waiting_branches_raise(geopackage_bases, tmp_path, change, item):
+    """The two branches that waited for ROADMAP A10/A11 and A13; both
+    route now.  Hybrid routing: on ``test_torch_hybrid``'s RouteLink
+    domain the port's run equals the JAX command line's (MC rows and the
+    appended mainstem at the f32 bar).  ``sharded`` (A13): the port's
+    command in a 2-rank gloo group on the CPU (two run sets with lite
+    restarts, outputs) equals the JAX command line sharded over this
+    file's 8 CPU devices, and the port's one-process run, at the f32 bar;
+    both ranks return the same result, rank 0 alone wrote the files, and
+    neither rank imported JAX or launched a kernel.  Alone, one process
+    with ``sharded`` routes on its device bit for bit as without it."""
     bases, dom = geopackage_bases
     if item == "A10/A11":
         from test_torch_hybrid import hybrid_config, write_hybrid_domain
@@ -533,23 +534,81 @@ def test_waiting_branches_raise(geopackage_bases, tmp_path, monkeypatch,
         np.testing.assert_array_equal(got["diffusive"]["ids"],
                                       want["diffusive"]["ids"])
         return
+    from troute_torch.parallel import ranks
+    from troute_torch.parallel.group import spawn_ranks
     cfg = _geopackage_cfg(dom["ids"], **change)
-    cfg["output_parameters"] = {}
-    got, want = run_both(cfg, *bases, name="sharded.yaml")
+    cfg["output_parameters"]["csv_output"]["csv_output_folder"] = \
+        "out_sharded"
+    cfg["output_parameters"]["parquet_output"]["parquet_output_folder"] = \
+        "out_sharded"
+    cfg["output_parameters"]["lite_restart"][
+        "lite_restart_output_directory"] = "restart_sharded"
+    p = bases[1] / "sharded.yaml"
+    yaml.safe_dump(cfg, open(p, "w"))
+    want = jax_cli.main_v04(["-f", str(p), "--cpu"])
+    p = bases[0] / "sharded.yaml"
+    yaml.safe_dump(cfg, open(p, "w"))
+    out = spawn_ranks(ranks.cli_main, 2, args=(["-f", str(p), "--cpu"],),
+                      timeout=300)
+    got = out[0]
+    for rank in out:
+        assert rank["launches"] == 0 and rank["foreign"] == []
+        np.testing.assert_array_equal(rank["fvd"], got["fvd"])
+        np.testing.assert_array_equal(rank["ids"], want["ids"])
+    assert out[1]["written"] == []
+    assert [Path(w).name for w in got["written"]] == \
+        [w.name for w in want["written"]]
+    assert all(Path(w).is_file() for w in got["written"])
+    assert got["fvd"].shape == want["fvd"].shape == (24, dom["ids"].size, 3)
+    f32_bar(got["fvd"], want["fvd"])
+    for g, w in zip(got["final_state"], want["final_state"]):
+        f32_bar(g, w)
+    assert_files_match([Path(w) for w in got["written"]], want["written"])
     plain = copy.deepcopy(cfg)
     del plain["compute_parameters"]["parallel_compute_method"]
+    plain["output_parameters"] = {}
     p = bases[0] / "unsharded.yaml"
     yaml.safe_dump(plain, open(p, "w"))
     alone = torch_cli.main_v04(["-f", str(p), "--cpu"])
-    np.testing.assert_array_equal(got["fvd"], alone["fvd"])
+    f32_bar(got["fvd"], alone["fvd"])
     for g, w in zip(got["final_state"], alone["final_state"]):
+        f32_bar(g, w)
+    one = copy.deepcopy(cfg)
+    one["output_parameters"] = {}
+    p = bases[0] / "sharded_alone.yaml"
+    yaml.safe_dump(one, open(p, "w"))
+    single = torch_cli.main_v04(["-f", str(p), "--cpu"])
+    np.testing.assert_array_equal(single["fvd"], alone["fvd"])
+    for g, w in zip(single["final_state"], alone["final_state"]):
         np.testing.assert_array_equal(g, w)
-    f32_bar(got["fvd"], want["fvd"])
-    # where the JAX command line shards, on more than one GPU
+
+
+def test_sharded_group_that_cannot_start_raises(geopackage_bases,
+                                                monkeypatch):
+    """Told by torchrun's environment to make a group on the card, where
+    NCCL cannot start (this PyTorch has no NCCL; the card's presence is
+    faked), the command line raises and leaves no group behind; it falls
+    back neither to gloo nor to one process."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    bases, dom = geopackage_bases
+    cfg = _geopackage_cfg(dom["ids"], parallel_compute_method="sharded")
+    cfg["output_parameters"] = {}
+    p = bases[0] / "sharded_nccl.yaml"
+    yaml.safe_dump(cfg, open(p, "w"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match=item):
-        torch_cli.main_v04(["-f", str(bases[0] / "sharded.yaml")])
+    monkeypatch.setattr(torch.cuda, "set_device", lambda device: None)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        torch_cli.main_v04(["-f", str(p)])
+    assert not dist.is_initialized()
 
 
 def test_hybrid_without_diffusive_domain_refused_by_both_schemas(tmp_path):

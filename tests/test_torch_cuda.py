@@ -488,3 +488,44 @@ def test_bmi_update_card_matches_cpu(cuda, tmp_path, mode):
         check_f32_bar(*vals, "BMI short card vs cpu", max_share=1e-5)
     else:
         check_strict_f32(*vals, "BMI fixed point card vs cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_route_sharded_global_nccl_world_1_equals_route_stepped(
+        cuda, tmp_path, dtype):
+    """A 1-rank NCCL group on the card: ``route_sharded_global`` in short
+    mode (5,000 segments, lakes and gages) bit for bit equal to
+    ``route_stepped``, with B1 launched once per step."""
+    import torch.distributed as dist
+
+    from troute_torch.parallel.group import init_group
+    from troute_torch.parallel.sharded_engine import route_sharded_global
+    case = _strict_case(5000, 3)
+    topo, chan, lp, q0, d0, qlat, gage_rows, obs = case
+    cfg = engine.RoutingConfig(dt=DT, nts=4, qts_subdivisions=2,
+                               assume_short_ts=True)
+    want = _route_strict(case, cfg, dtype, cuda)
+    da = engine.GageDA(
+        rows=torch.as_tensor(gage_rows, device=cuda),
+        obs=torch.as_tensor(obs, dtype=dtype, device=cuda),
+        lastobs_val=torch.full((10,), 2.0, dtype=dtype, device=cuda),
+        lastobs_time=torch.full((10,), -600.0, dtype=dtype, device=cuda),
+        decay_coeff=120.0)
+    init_group(cuda, "nccl", init_method=f"file://{tmp_path}/store", rank=0,
+               world_size=1)
+    try:
+        before = muskingum_cuda.LAUNCHES
+        got = route_sharded_global(
+            None, topo, chan, np.stack(lp, axis=1), cfg,
+            torch.as_tensor(q0, dtype=dtype, device=cuda), d0,
+            np.full(5, 10.5), qlat, da=da, dtype=dtype, device=cuda)
+        torch.cuda.synchronize()
+        assert muskingum_cuda.LAUNCHES == before + cfg.nts
+        assert got["mc_calls"] == cfg.nts
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got["flowveldepth"], want["flowveldepth"])
+    assert torch.equal(got["nudge"], want["nudge"])
+    for f in ("q", "depth", "res_elev", "lastobs_val", "lastobs_time"):
+        assert torch.equal(getattr(got["state"], f),
+                           getattr(want["state"], f)), f

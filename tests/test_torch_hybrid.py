@@ -522,3 +522,50 @@ def test_mainstem_qlat_sources_match_jax(bases, tmp_path):
     np.testing.assert_array_equal(
         thybrid.mainstem_qlat(th, 0.25, 4)[1],
         np.full((4, ms_ids.size), 0.25, np.float32))
+
+
+def test_sharded_mainstem_matches_unsharded_and_jax(bases):
+    """``run_mainstem``'s sharded branch: 2 gloo ranks on the CPU share the
+    batch's 2 tree lanes (float64, exact tables), fed the MC flows of the
+    JAX command line run with ``parallel_compute_method: sharded`` (which
+    shards its lanes over the 8 CPU devices, ``shard_batched_domains``).
+    Both ranks return the whole result; it equals the port's unsharded
+    batch on the same inputs at rtol 1e-12 and the JAX run's mainstem at
+    the f64 bar above (rtol/atol 1e-9)."""
+    from troute_torch.parallel import ranks
+    from troute_torch.parallel.group import spawn_ranks
+    (bt, bj), _ = bases
+    cfg = case_config("trapezoid_auto")
+    cfg["compute_parameters"]["parallel_compute_method"] = "sharded"
+    for b in (bt, bj):
+        yaml.safe_dump(cfg, open(b / "sharded.yaml", "w"))
+    want = jax_cli.main_v04(["-f", str(bj / "sharded.yaml"), "--cpu"])
+    tcfg = torch_load_config(bt / "sharded.yaml")
+    fp = tcfg.compute_parameters.forcing_parameters
+    files = sorted((bt / "channel_forcing").glob("*.CHRTOUT_DOMAIN1"))
+    sets = torch_cli.build_forcing_sets(files, float(fp.dt),
+                                        fp.qts_subdivisions, fp.nts,
+                                        fp.max_loop_size)
+    n_mc = want["fvd"].shape[1] - want["diffusive"]["ids"].size
+    args = (load_hybrid(thybrid, tcfg, bt), want["fvd"][:, :n_mc],
+            want["built"].topo.ids, want["built"].q0,
+            [f for r in sets for f in r["qlat_files"]], float(fp.dt),
+            fp.qts_subdivisions, tcfg.compute_parameters.hybrid_parameters,
+            "cpu")
+    out = spawn_ranks(ranks.run_cases, 2, args=(
+        [dict(kind="mainstem", world=2, args=args)],), timeout=300)
+    alone = thybrid.run_mainstem(*args)
+    assert alone["dtype"] == "float64"
+    for proc in out:
+        assert proc["foreign"] == [] and proc["launches"] == 0
+        rank = proc["cases"][0]
+        np.testing.assert_array_equal(rank["ids"], alone["ids"])
+        for k in ("q", "depth"):
+            assert rank["diffusive"][k].shape == (24, len(alone["diffusive"][
+                "ids"]))
+            np.testing.assert_allclose(rank["diffusive"][k],
+                                       alone["diffusive"][k], rtol=1e-12,
+                                       atol=1e-12, err_msg=k)
+            np.testing.assert_allclose(rank["diffusive"][k],
+                                       want["diffusive"][k], rtol=1e-9,
+                                       atol=1e-9, err_msg=k)

@@ -64,6 +64,23 @@ def test_no_file_of_the_port_imports_jax():
         assert not pat.search(f.read_text()), f
 
 
+# two spawned gloo ranks route the probe's network with every node on
+# another rank than its neighbours; each reports what it imported
+_SHARDED = """
+from troute_torch.parallel import ranks as pranks
+from troute_torch.parallel.group import spawn_ranks
+case = dict(kind="global", world=2, dtype="float64", topo=topo,
+            chan={k: v.numpy() for k, v in chan._asdict().items()},
+            res_params=None, cfg=cfg, q0=q0.numpy(), depth0=0.1 * q0.numpy(),
+            elev0=np.zeros(1), qlat=np.full((1, n), 0.5),
+            assignment=(np.arange(n) % 2).astype(np.int32))
+outs = spawn_ranks(pranks.run_cases, 2, args=([case],), timeout=120)
+assert all(o["foreign"] == [] for o in outs), outs
+assert outs[0]["cases"][0]["cut_edges"] > 0
+np.testing.assert_allclose(outs[0]["cases"][0]["fvd"], fvd, rtol=1e-9,
+                           atol=1e-12)
+"""
+
 _PROBE_ALL = """
 import importlib, pkgutil, sys
 sys.modules["h5py"] = None      # hidden: any ``import h5py`` now raises
@@ -81,7 +98,9 @@ for name in ("cli", "__main__", "config.schema", "io.netcdf", "io.output",
              "network.rfc_crosswalk", "da_assembly", "parity",
              "diffusive.xsection", "diffusive.solver", "diffusive.domain",
              "io.coastal", "routing.hybrid", "bmi", "bmi.codec",
-             "bmi.bmi_troute", "bmi.bmi_reservoirs", "bmi.bmi_daforcing"):
+             "bmi.bmi_troute", "bmi.bmi_reservoirs", "bmi.bmi_daforcing",
+             "parallel", "parallel.partition", "parallel.sharded_engine",
+             "parallel.stepped_engine", "parallel.group", "parallel.ranks"):
     assert "troute_torch." + name in names, name
 from troute_torch.io.netcdf import NetCDFFile
 try:
@@ -140,7 +159,7 @@ assert res.get_value("lake_water~outgoing__volume_flow_rate")[0] > 0
     '    cfg._replace(assume_short_ts=False), q0, 0.1 * q0,\n'
     '    torch.zeros(1, dtype=f64), torch.full((1, n), 0.5, dtype=f64))\n'
     'assert levels["mc_calls"] == 3 * topo.n_levels\n'
-    'print("FOREIGN", chip_smoke.foreign_modules())')
+    + _SHARDED + 'print("FOREIGN", chip_smoke.foreign_modules())')
 
 
 def test_port_imports_nothing_of_the_jax_package():
@@ -150,7 +169,8 @@ def test_port_imports_nothing_of_the_jax_package():
     domain, a tiny hybrid mainstem (``run_mainstem``) and one update of
     the routing and reservoir BMIs: every module imports without ``h5py``
     (a NetCDF read then raises an ``ImportError`` that names it), and no
-    module of JAX, of ``troute_tpu`` or ``bench`` is loaded."""
+    module of JAX, of ``troute_tpu`` or ``bench`` is loaded, in the
+    process or in its ranks."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_ENABLE_X64", "XLA_FLAGS")}
     env["PYTHONPATH"] = str(REPO)
@@ -171,5 +191,8 @@ def test_no_source_of_the_port_imports_the_jax_side(name):
     assert {"bmi_troute.py", "bmi_reservoirs.py", "bmi_daforcing.py",
             "codec.py"} <= {f.name for f in files if f.parent.name == "bmi"}
     assert {"hybrid.py", "coastal.py"} <= {f.name for f in files}
+    assert {"partition.py", "sharded_engine.py", "stepped_engine.py",
+            "group.py", "ranks.py"} <= {f.name for f in files
+                                        if f.parent.name == "parallel"}
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -122,3 +122,32 @@ def test_network_arrays_match_converted_jax():
                  (net_t.uplan.rem_src, net_c.uplan.rem_src)):
         assert a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+def test_remainder_layers_name_each_node_once_and_keep_the_order():
+    """``remainder_layers`` regroups a plan's remainder so that no layer
+    names a node twice (a layer's ``index_add`` then needs no ordering
+    between CUDA's atomic adds), and adding the layers in turn equals one
+    ``index_add`` of the edges in the plan's order, bit for bit (f32):
+    each node's terms keep their order."""
+    ids, down = bench.synthetic_conus(n=5000, n_basins=50)
+    topo = build_topology_postorder(ids, down)
+    n_pad = -(-topo.n_nodes // 1024) * 1024
+    plan = tplan.build_upstream_plan(np.asarray(topo.upstream), n_pad)
+    counts = np.bincount(plan.rem_dst, minlength=n_pad)
+    assert (counts >= 2).sum() > 10
+    dst, src, cuts = tplan.remainder_layers(plan.rem_dst, plan.rem_src)
+    assert len(cuts) == counts.max() - 1
+    bounds = (0,) + cuts + (dst.size,)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        assert np.unique(dst[a:b]).size == b - a
+    q = torch.as_tensor(np.random.default_rng(2).uniform(0, 9, n_pad),
+                        dtype=torch.float32)
+    base = torch.as_tensor(np.random.default_rng(3).uniform(0, 9, n_pad),
+                           dtype=torch.float32)
+    want = base.index_add(0, torch.as_tensor(plan.rem_dst, dtype=torch.int64),
+                          q[torch.as_tensor(plan.rem_src, dtype=torch.int64)])
+    op = tplan.UpstreamOp.from_plan(plan, device="cpu")
+    assert op.rem_cuts == cuts
+    got = tplan.remainder_add(base, q, op.rem_dst, op.rem_src, op.rem_cuts)
+    assert torch.equal(got, want)

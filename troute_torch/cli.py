@@ -20,16 +20,24 @@ Courant numbers come to the host once per run set.  Hybrid routing
 (``run_hybrid_routing`` with a ``diffusive_domain``) carves the mainstem
 out of the MC network and routes it after the MC run with
 ``routing/hybrid.py:run_mainstem``, on the same device.
-``parallel_compute_method: sharded`` routes on one device, as the JAX CLI
-does wherever it would not shard; where it would (a short or fixed-point
-run without Courant numbers, on more than one device) the port raises
-``NotImplementedError`` naming ROADMAP A13.
+``parallel_compute_method: sharded`` shards a short or fixed-point run
+without Courant numbers across the ranks of a process group, one process
+per GPU, where the JAX CLI shards across its devices: under ``torchrun``
+(``python -m torch.distributed.run --nproc_per_node=N -m troute_torch -f
+cfg.yaml``) the command line makes the group (NCCL on the card, gloo with
+``--cpu``), or it joins the default group its caller made.  It
+partitions the network once (``parallel/partition.py``), routes each run
+set with ``parallel/sharded_engine.py:route_sharded_global``, and shards
+the hybrid run's batch lanes; every rank returns the same result, and
+rank 0 alone writes files.  A single process is a group of one and routes
+on one device, as the JAX CLI does with one device.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import re
 import time
 from pathlib import Path
@@ -37,6 +45,7 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 import torch
+import torch.distributed as dist
 
 LOG = logging.getLogger("troute_torch")
 
@@ -391,11 +400,11 @@ def assemble_reservoir_da(cfg, built, base, t0, nts, dt, dtype, device):
         **rfc_fields, **gl_fields)
 
 
-def _configure_logging(cfg, base):
+def _configure_logging(cfg, base, writer: bool = True):
     """Apply ``log_parameters`` (reference ``log_level_set``,
     nwm_routing/log_level_set.py:6-46): root level from ``log_level``,
     optional file handler + pre-run parameter dump under
-    ``log_directory``."""
+    ``log_directory`` (by the ``writer`` rank only)."""
     lp = cfg.log_parameters
     level = getattr(logging, str(lp.log_level or "DEBUG").upper(),
                     logging.DEBUG)
@@ -403,7 +412,7 @@ def _configure_logging(cfg, base):
     # touched when a log file is requested (keeps library use quiet)
     logging.getLogger("troute_torch").setLevel(level)
     log_dir = getattr(lp, "log_directory", None)
-    if not log_dir:
+    if not log_dir or not writer:
         return
     log_dir = base / str(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
@@ -428,20 +437,7 @@ def _configure_logging(cfg, base):
         f.write(f"run_refactored_network: {hp.run_refactored_network}\n")
 
 
-def main_v04(argv=None) -> dict:
-    """Run a full simulation; returns a results dict of NumPy arrays (also
-    used by tests)."""
-    from troute_torch.config import load_config
-    from troute_torch.io.forcing import read_qlat_chrtout
-    from troute_torch.io.output import (
-        write_chanobs_nc, write_flowveldepth_csv, write_lakeout_nc,
-        write_lastobs_nc)
-    from troute_torch.network.builder import build_network
-    from troute_torch.ops.levelpool import LevelpoolParams
-    from troute_torch.routing.engine import (
-        ChannelParams, RoutingConfig, network_arrays_from_topology, route,
-        route_stepped)
-
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="troute_torch")
     parser.add_argument("-f", "--custom-input-file", dest="config",
                         required=True)
@@ -457,15 +453,70 @@ def main_v04(argv=None) -> dict:
     parser.add_argument("-a", "--async-io", action="store_true",
                         help="overlap run-set forcing reads with routing "
                              "(see forcing_parameters.async_prefetch)")
-    args = parser.parse_args(argv)
+    return parser
 
+
+def _device(args) -> torch.device:
+    """``--cpu``, else this process's CUDA device: the one ``torchrun``
+    gives it (``LOCAL_RANK``) or the current one."""
     if args.cpu:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass --cpu to route "
                            "on the CPU")
+    if "LOCAL_RANK" in os.environ and not dist.is_initialized():
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _process_group(device):
+    """(group, made here): the caller's default group when one exists,
+    else the group ``torchrun``'s environment describes (``WORLD_SIZE``
+    set), made here on ``device`` (NCCL on the card, gloo on the CPU; a
+    group that cannot start raises); else (None, False), one process."""
+    if dist.is_initialized():
+        return dist.group.WORLD, False
+    if "WORLD_SIZE" not in os.environ:
+        return None, False
+    from troute_torch.parallel.group import init_group
+    return init_group(device), True
+
+
+def main_v04(argv=None) -> dict:
+    """Run a full simulation; returns a results dict of NumPy arrays (also
+    used by tests).
+
+    Under a process group (the caller's, or the one ``torchrun``'s
+    environment describes, made here and destroyed at the end)
+    ``parallel_compute_method: sharded`` routes across the group's ranks,
+    one shard each, where the JAX command line shards across devices;
+    every rank returns the same result and rank 0 alone writes files."""
+    args = _parser().parse_args(argv)
+    device = _device(args)
+    group, own_group = _process_group(device)
+    try:
+        return _run(args, device, group)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args, device, group) -> dict:
+    """``main_v04``'s run in ``group`` (None: one process) on ``device``."""
+    from troute_torch.config import load_config
+    from troute_torch.io.forcing import read_qlat_chrtout
+    from troute_torch.io.output import (
+        write_chanobs_nc, write_flowveldepth_csv, write_lakeout_nc,
+        write_lastobs_nc)
+    from troute_torch.network.builder import build_network
+    from troute_torch.ops.levelpool import LevelpoolParams
+    from troute_torch.routing.engine import (
+        ChannelParams, RoutingConfig, network_arrays_from_topology, route,
+        route_stepped)
+
+    world = 1 if group is None else dist.get_world_size(group)
+    # rank 0 alone writes files (outputs, restarts, logs)
+    writer = group is None or dist.get_rank(group) == 0
 
     task_times = {"network_time": 0.0, "forcing_time": 0.0,
                   "route_time": 0.0, "output_time": 0.0}
@@ -475,7 +526,7 @@ def main_v04(argv=None) -> dict:
     # -V3 engages reference-exact v3 key normalization; without it, v3
     # keys still map but with a logged warning (schema.load_config)
     cfg = load_config(args.config, v3=True if args.v3 else None)
-    _configure_logging(cfg, base)
+    _configure_logging(cfg, base, writer)
     fp = cfg.compute_parameters.forcing_parameters
     if args.async_io:
         fp.async_prefetch = True
@@ -493,16 +544,13 @@ def main_v04(argv=None) -> dict:
     t_start = time.time()
     comp = cfg.compute_parameters
     strict_iterative = bool(getattr(comp, "strict_iterative", False))
-    # the JAX command line shards only short or fixed-point runs without
-    # Courant numbers on more than one device (troute_tpu/cli.py:680-683)
-    # and routes every other sharded run on one device, as here
-    n_devices = 1 if device.type == "cpu" else torch.cuda.device_count()
-    if str(comp.parallel_compute_method or "") == "sharded" \
-            and (comp.assume_short_ts or strict_iterative) \
-            and not comp.return_courant and n_devices > 1:
-        raise NotImplementedError(
-            "parallel_compute_method: sharded on more than one GPU: "
-            "routing across several GPUs is not ported yet (ROADMAP A13)")
+    # the JAX command line shards short and fixed-point runs without
+    # Courant numbers over its devices (troute_tpu/cli.py:680-707); here
+    # over the ranks of the process group, and with one rank on one device
+    shard = (str(comp.parallel_compute_method or "") == "sharded"
+             and (comp.assume_short_ts or strict_iterative)
+             and not comp.return_courant and world > 1)
+    part = None
     hyb = None
     exclude = None
     hp = comp.hybrid_parameters
@@ -705,9 +753,27 @@ def main_v04(argv=None) -> dict:
             strict_accel_lin=int(getattr(comp, "strict_accel_lin", 8)),
             strict_accel_chunk=int(getattr(comp, "strict_accel_chunk", 8)),
             strict_block_skip=getattr(comp, "strict_block_skip", "auto"))
-        out = (route if level_scan else route_stepped)(
-            net, cp, lp, rcfg, q0, d0, elev0, _tensor(ql, dtype, device),
-            set_da, set_res_da)
+        if shard:
+            from troute_torch.parallel.sharded_engine import (
+                route_sharded_global)
+            if part is None:
+                from troute_torch.parallel.partition import (
+                    balanced_assignment, partition_network)
+                t_part = time.time()
+                part = partition_network(topo, world,
+                                         balanced_assignment(topo, world))
+                LOG.info("sharded routing: %d devices, %d nodes/device, %d "
+                         "cut edges, %d exchange rounds (partition %.2fs)",
+                         world, part.n_local, part.cut_edges,
+                         part.perm_pairs.shape[0], time.time() - t_part)
+            out = route_sharded_global(
+                group, topo, built.chan, built.res_params, rcfg, q0, d0,
+                elev0, ql, da=set_da, res_da=set_res_da, part=part,
+                dtype=dtype, device=device)
+        else:
+            out = (route if level_scan else route_stepped)(
+                net, cp, lp, rcfg, q0, d0, elev0, _tensor(ql, dtype, device),
+                set_da, set_res_da)
         state = out["state"]
         q0, d0, elev0 = state.q, state.depth, state.res_elev
         set_seconds = run["nts"] * dt
@@ -735,7 +801,7 @@ def main_v04(argv=None) -> dict:
         if out.get("nudge") is not None and out["nudge"].numel():
             all_nudge.append(_host(out["nudge"]))
         # lite restart at each run-set boundary (reference __main__.py:270)
-        if op.lite_restart \
+        if writer and op.lite_restart \
                 and op.lite_restart.get("lite_restart_output_directory") \
                 and s < len(run_sets) - 1:
             from troute_torch.io.restart import write_lite_restart
@@ -766,7 +832,8 @@ def main_v04(argv=None) -> dict:
                            if cfg.compute_parameters
                            .data_assimilation_parameters.streamflow_da
                            else None)
-        if da is not None and lastobs_dir_set and s < len(run_sets) - 1:
+        if writer and da is not None and lastobs_dir_set \
+                and s < len(run_sets) - 1:
             from troute_torch.io.output import write_lastobs_nc
             lo_dir = base / lastobs_dir_set
             lo_dir.mkdir(parents=True, exist_ok=True)
@@ -818,7 +885,7 @@ def main_v04(argv=None) -> dict:
             qlat_source = float(fp.qlat_const)
         ms = run_mainstem(
             hyb, fvd, topo.ids, built.q0, qlat_source, dt, qts, hp, device,
-            out_ids=out_ids,
+            out_ids=out_ids, group=group if shard else None,
             n_qlat_rows=sum(max(1, -(-r["nts"] // qts)) for r in run_sets))
         fvd, out_ids, diffusive_out = ms["fvd"], ms["ids"], ms["diffusive"]
         task_times["route_time"] += ms["seconds"]
@@ -833,7 +900,7 @@ def main_v04(argv=None) -> dict:
         keep = np.isin(out_ids, np.asarray(segments, np.int64))
         return out_ids[keep], fvd[:, keep]
 
-    if op.csv_output and op.csv_output.get("csv_output_folder"):
+    if writer and op.csv_output and op.csv_output.get("csv_output_folder"):
         out_dir = base / op.csv_output["csv_output_folder"]
         out_dir.mkdir(parents=True, exist_ok=True)
         p = out_dir / f"flowveldepth_{t0.strftime('%Y%m%d%H%M')}.csv"
@@ -853,7 +920,7 @@ def main_v04(argv=None) -> dict:
             pc = out_dir / f"courant_{t0.strftime('%Y%m%d%H%M')}.csv"
             cdf.to_csv(pc)
             written.append(pc)
-    if op.test_output:
+    if writer and op.test_output:
         # pickle of the full flowveldepth DataFrame in the reference's
         # test frame shape: index = segment ids (lakes under outlet link
         # ids), flat (timestep, 'q'|'v'|'d') tuple columns
@@ -867,7 +934,8 @@ def main_v04(argv=None) -> dict:
                      for v in ("q", "v", "d")])
         tdf.to_pickle(tp)
         written.append(tp)
-    if op.stream_output and op.stream_output.stream_output_directory:
+    if writer and op.stream_output \
+            and op.stream_output.stream_output_directory:
         import yaml as _yaml
 
         from troute_torch.io.output import write_stream_output
@@ -892,7 +960,8 @@ def main_v04(argv=None) -> dict:
             file_hours=float(so.stream_output_time or 1.0),
             internal_frequency_min=so.stream_output_internal_frequency,
             mask_list=mask_list, nexus_members=nexus_members))
-    if op.chanobs_output and op.chanobs_output.chanobs_output_directory \
+    if writer and op.chanobs_output \
+            and op.chanobs_output.chanobs_output_directory \
             and built.gage_rows.size:
         out_dir = base / op.chanobs_output.chanobs_output_directory
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -909,7 +978,8 @@ def main_v04(argv=None) -> dict:
         written.append(write_chanobs_nc(
             p, built.gage_ids, topo.ids[built.gage_rows],
             fvd[:, built.gage_rows], t0, dt, append=append))
-    if op.parquet_output and op.parquet_output.get("parquet_output_folder"):
+    if writer and op.parquet_output \
+            and op.parquet_output.get("parquet_output_folder"):
         from troute_torch.io.output import flowveldepth_dataframe
         out_dir = base / op.parquet_output["parquet_output_folder"]
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -920,7 +990,8 @@ def main_v04(argv=None) -> dict:
         p = out_dir / f"troute_output_{t0.strftime('%Y%m%d%H%M')}.parquet"
         df.to_parquet(p)
         written.append(p)
-    if op.lite_restart and op.lite_restart.get("lite_restart_output_directory"):
+    if writer and op.lite_restart \
+            and op.lite_restart.get("lite_restart_output_directory"):
         from troute_torch.io.restart import write_lite_restart
         out_dir = base / op.lite_restart["lite_restart_output_directory"]
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -941,7 +1012,7 @@ def main_v04(argv=None) -> dict:
                    .streamflow_da.lastobs_output_folder
                    if cfg.compute_parameters.data_assimilation_parameters
                    .streamflow_da else None) or op.lastobs_output
-    if da is not None and lastobs_dir:
+    if writer and da is not None and lastobs_dir:
         from troute_torch.io.output import write_lastobs_nc
         out_dir = base / lastobs_dir
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -952,7 +1023,7 @@ def main_v04(argv=None) -> dict:
             p, built.gage_ids, _host(da.lastobs_time),
             _host(da.lastobs_val), end_time))
     chrto = op.chrtout_output
-    if chrto and chrto.wrf_hydro_channel_output_source_folder:
+    if writer and chrto and chrto.wrf_hydro_channel_output_source_folder:
         from troute_torch.io.output import append_chrtout
         src = base / chrto.wrf_hydro_channel_output_source_folder
         files = [src / Path(f).name
@@ -962,7 +1033,7 @@ def main_v04(argv=None) -> dict:
     rsrto = op.wrf_hydro_restart_output or {}
     rst_src = (rsrto.get("wrf_hydro_channel_restart_source_directory")
                or rsrto.get("wrf_hydro_restart_dir"))
-    if rst_src:
+    if writer and rst_src:
         from troute_torch.io.restart import append_hydro_rst
         src = base / rst_src
         patt = rsrto.get("wrf_hydro_channel_restart_pattern_filter",
@@ -973,7 +1044,8 @@ def main_v04(argv=None) -> dict:
             written.extend(append_hydro_rst(
                 sorted(src.glob(patt)), out_ids, fvd, t0, dt,
                 base / xwalk))
-    if op.lakeout_output and topo.reservoir_rows.size and fvd.shape[0]:
+    if writer and op.lakeout_output and topo.reservoir_rows.size \
+            and fvd.shape[0]:
         # one lakeout file per output hour (reference writes waterbody
         # states each qts-th step, output.py:231-258 + nhd_io:1775)
         out_dir = base / str(op.lakeout_output)
@@ -1019,7 +1091,7 @@ def main_v04(argv=None) -> dict:
     task_times["output_time"] = time.time() - t_start
 
     task_times["total_time"] = time.time() - main_start
-    if cfg.log_parameters.showtiming:
+    if writer and cfg.log_parameters.showtiming:
         tt = task_times
         print("troute_torch timing summary")
         print(f"  network build : {tt['network_time']:.2f} s")

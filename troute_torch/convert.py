@@ -8,7 +8,9 @@ fields become int64; int32 fields (reservoir types, counts, series
 indices, months) stay int32; bool fields stay bool.  Every field is
 copied, so the tensors never alias JAX's read-only buffers.
 ``from_hybrid_domain`` and ``from_bmi_state`` carry the host state of the
-JAX package's ``HybridDomain`` and BMI instance across.
+JAX package's ``HybridDomain`` and BMI instance across;
+``from_sharded_inputs`` and ``from_sharded_res_da`` take one rank's row of
+the JAX package's [n_dev, ...] sharded arrays.
 """
 
 from __future__ import annotations
@@ -59,11 +61,9 @@ def from_network_arrays(net, *, device) -> NetworkArrays:
     schedule included."""
     uplan = None
     if net.uplan is not None:
-        uplan = UpstreamOp(
-            masks=_t(net.uplan.masks, device=device),
-            rem_dst=_index(net.uplan.rem_dst, device=device),
-            rem_src=_index(net.uplan.rem_src, device=device),
-            shifts=tuple(net.uplan.shifts))
+        uplan = UpstreamOp.from_arrays(
+            np.array(net.uplan.masks), np.array(net.uplan.rem_dst),
+            np.array(net.uplan.rem_src), net.uplan.shifts, device=device)
     return NetworkArrays(
         upstream=_index(net.upstream, device=device),
         is_reservoir=_t(net.is_reservoir, device=device),
@@ -173,6 +173,55 @@ def from_bmi_state(jax_bmi, bmi):
     if getattr(jax_bmi, "_coastal", None) is not None:
         bmi._coastal = copy.deepcopy(jax_bmi._coastal)
     return bmi
+
+
+def from_sharded_inputs(inp, rank: int, *, device, dtype):
+    """Rank ``rank``'s ``ShardedInputs`` from the JAX package's
+    ([n_dev, ...] arrays; ``qlat`` [n_cols, n_dev, n_local], the exchange
+    rounds ``perm_pairs`` shared): floats in ``dtype``, indices int64,
+    masks bool."""
+    from troute_torch.parallel.sharded_engine import ShardedInputs
+
+    def row(a):
+        return _t(np.array(a)[rank], device=device, dtype=dtype)
+
+    vals = {}
+    for f in ShardedInputs._fields:
+        v = getattr(inp, f)
+        if f == "perm_pairs":
+            vals[f] = np.array(v, np.int64)
+        elif f == "chan":
+            vals[f] = ChannelParams(*[row(a) for a in v])
+        elif f == "res_params":
+            vals[f] = LevelpoolParams(*[row(a) for a in v])
+        elif f == "qlat":
+            vals[f] = _t(np.array(v)[:, rank], device=device, dtype=dtype)
+        else:
+            t = row(v)
+            vals[f] = t.long() if t.dtype == torch.int32 else t
+    return ShardedInputs(**vals)
+
+
+def from_sharded_res_da(rda, rank: int, *, device, dtype):
+    """Rank ``rank``'s ``ShardedResDA`` from the JAX package's ([n_dev, R,
+    ...] lanes; the shared series as replicated [n_dev, ...] copies)."""
+    from troute_torch.parallel.sharded_engine import ShardedResDA
+
+    def row(a):
+        return _t(np.array(a)[rank], device=device, dtype=dtype)
+
+    states = {"hyb0": HybridDAState, "rfc0": RfcDAState,
+              "gl0": GreatLakesDAState}
+    vals = {}
+    for f in ShardedResDA._fields:
+        v = getattr(rda, f)
+        if f == "obs_lookback_hours":
+            vals[f] = float(v)
+        elif f in states:
+            vals[f] = states[f](*[row(a) for a in v])
+        else:
+            vals[f] = row(v)
+    return ShardedResDA(**vals)
 
 
 def to_numpy(x: Any) -> Any:

@@ -1318,3 +1318,47 @@ def run_diffusive_batched(dom: DiffusiveDomain, st: DiffusiveState,
     shape = (B,) + tuple(st.q.shape[1:])
     return st, [(t_start + (k + 1) * save_interval, qs[k].reshape(shape),
                  ys[k].reshape(shape)) for k in range(n_saves)]
+
+
+def shard_batched_domains(dom: DiffusiveDomain, st: DiffusiveState,
+                          group=None):
+    """This rank's lanes of a batched [B, ...] domain and state.
+
+    Port of ``troute_tpu/diffusive/solver.py:shard_batched_domains``.
+    Tailwater domains are independent (the reference runs one ``diffnw``
+    call per domain), so the batch needs no communication while it runs:
+    the lanes are padded to a multiple of the group's size (repeating lane
+    0, dropped on read-back) and each rank of ``group`` (None: the default
+    group) keeps one contiguous slice of them.  Returns (dom, st,
+    n_real_lanes); ``gather_batched_saves`` puts the ranks' saves back
+    together."""
+    import torch.distributed as dist
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    b = int(dom.z.shape[0])
+    pad = (-b) % world
+    per = (b + pad) // world
+
+    def prep(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if pad:
+            a = torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))])
+        return a[rank * per:(rank + 1) * per]
+
+    return (type(dom)(*[prep(a) for a in dom]),
+            type(st)(*[prep(a) for a in st]), b)
+
+
+def gather_batched_saves(saves, n_real: int, group=None):
+    """Every rank's slice of ``run_diffusive_batched``'s saves (run on the
+    lanes of ``shard_batched_domains``) as the saves of the whole batch,
+    on every rank: [(t, q[B, R, C], y[B, R, C]), ...] with the pad lanes
+    dropped.  One all-gather."""
+    from troute_torch.parallel.group import Comm
+    if not saves:
+        return []
+    local = torch.stack([torch.stack([q for _, q, _ in saves]),
+                         torch.stack([y for _, _, y in saves])])
+    parts = Comm(group, local.device).all_gather(local)
+    full = torch.cat(parts, dim=2)[:, :, :n_real]
+    return [(t, full[0, k], full[1, k]) for k, (t, _, _) in enumerate(saves)]

@@ -3,8 +3,9 @@
 ``csrc/topology_kernels.cpp`` is compiled by ``g++`` at first use into
 ``build/troute_torch/`` (``_build.build_host``).  Each wrapper returns
 None when the library cannot be built or loaded; the callers in
-``network/topology.py`` and ``routing/upstream_plan.py`` then take their
-NumPy fallbacks, which give identical arrays.  Which path is taken is
+``network/topology.py``, ``routing/upstream_plan.py`` and
+``parallel/partition.py`` then take their NumPy fallbacks, which give
+identical arrays (``connected_components``: the same basins).  Which path is taken is
 logged once, at the first call.
 """
 
@@ -41,6 +42,11 @@ def _load():
         lib.postorder_forest.argtypes = [i32p, i32p, ctypes.c_int64,
                                          ctypes.c_int32, i64p]
         lib.postorder_forest.restype = ctypes.c_int64
+        lib.connected_components.argtypes = [i32p, ctypes.c_int64, i32p]
+        lib.connected_components.restype = ctypes.c_int
+        lib.tree_cut_parts.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64,
+                                       i32p]
+        lib.tree_cut_parts.restype = ctypes.c_int64
         _lib = lib
         LOG.info("host topology preprocessing: native library %s", path)
     except Exception as e:  # no g++, or the build failed
@@ -96,3 +102,29 @@ def postorder_forest(downstream: np.ndarray,
     if lib.postorder_forest(ds, up, ds.size, up.shape[1], order) != ds.size:
         raise ValueError("drainage graph must be a forest (no cycles)")
     return order
+
+
+def connected_components(downstream: np.ndarray) -> np.ndarray | None:
+    """[N] int32 basin label per node (union along downstream edges,
+    labels in first-appearance order), or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    ds = np.ascontiguousarray(downstream, np.int32)
+    labels = np.zeros(ds.size, np.int32)
+    lib.connected_components(ds, ds.size, labels)
+    return labels
+
+
+def tree_cut_parts(downstream: np.ndarray, cap: int) -> np.ndarray | None:
+    """[N] int32 part id: connected parts of at most ``cap`` nodes made by
+    the fewest tree-edge cuts, or None without the library.  Raises
+    ValueError on cycles."""
+    lib = _load()
+    if lib is None:
+        return None
+    ds = np.ascontiguousarray(downstream, np.int32)
+    part = np.zeros(ds.size, np.int32)
+    if lib.tree_cut_parts(ds, ds.size, int(cap), part) < 0:
+        raise ValueError("cycle detected in network")
+    return part

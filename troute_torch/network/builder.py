@@ -15,6 +15,7 @@ seconds are logged at INFO.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -334,8 +335,12 @@ def build_network(cfg: Config, base: Path,
         wb_downstream_nexus=wb_ds_nexus, hyf_da=hyf_da)
     if cache_path is not None:
         cache_path.parent.mkdir(parents=True, exist_ok=True)
-        with open(cache_path, "wb") as f:
+        # written aside and renamed into place, so that another process
+        # (a rank of a sharded run) reads the whole network or none of it
+        tmp = cache_path.with_name(f".{cache_path.name}.{os.getpid()}")
+        with open(tmp, "wb") as f:
             pickle.dump(built, f)
+        os.replace(tmp, cache_path)
     t_stage.append(time.perf_counter())
     LOG.info("network stages: read %.2f s, graph %.2f s, topology %.2f s, "
              "arrays %.2f s", *np.diff(t_stage))

@@ -26,6 +26,7 @@ HYFeatures id semantics: flowpaths are ``wb-<n>``, junction points are
 
 from __future__ import annotations
 
+import os
 import re
 import sqlite3
 from typing import NamedTuple
@@ -375,7 +376,12 @@ def read_qlat_nexout(files, segment_ids, nexus_of_wb, binary_folder=None):
                 df = pd.read_csv(f, index_col=0)
                 cols[Path(f).name] = df.iloc[:, 0]
             tbl = pd.DataFrame(cols)
-            tbl.to_parquet(cache)
+            # written aside and renamed into place, so that another
+            # process (a rank of a sharded run) reads the whole table or
+            # none of it
+            tmp = cache.with_name(f".{cache.name}.{os.getpid()}")
+            tbl.to_parquet(tmp)
+            os.replace(tmp, cache)
             frames = cols
     out = np.zeros((len(files), segment_ids.size), np.float32)
     for t, f in enumerate(files):

@@ -46,7 +46,8 @@ from troute_torch.ops.muskingum_cuda import (block_active_lanes,
                                              muskingum_cunge_cuda)
 from troute_torch.ops.reservoir_da import (
     GreatLakesDAState, HybridDAState, RfcDAState, typed_reservoir_dispatch)
-from troute_torch.routing.upstream_plan import UpstreamOp, build_upstream_plan
+from troute_torch.routing.upstream_plan import (UpstreamOp, build_upstream_plan,
+                                                remainder_add)
 
 PAD_MULTIPLE = 1024  # node-axis padding, so the plan's n_pad fits the vectors
 
@@ -221,10 +222,11 @@ def network_arrays_from_topology(topo, *, device, need_levels: bool = False,
 
 
 def _upstream_sum(q: torch.Tensor, upstream: torch.Tensor) -> torch.Tensor:
-    """[N] sum of q over each node's (padded) upstream list, adding the
-    columns left to right (the plan's accumulation order)."""
+    """Sum of q over each row's (padded) upstream list, one per row of
+    ``upstream``, adding the columns left to right (the plan's
+    accumulation order)."""
     vals = torch.where(upstream >= 0, q[torch.clamp_min(upstream, 0)], 0.0)
-    up = torch.zeros_like(q)
+    up = q.new_zeros(upstream.shape[0])
     for k in range(vals.shape[1]):
         up = up + vals[:, k]
     return up
@@ -580,7 +582,8 @@ def _strict_gs_sweeps(q_est, g: _GSStep, res_elev, t_seconds: float,
         shifted_old = [_cols(qx[lo - d:lo - d + n], width) for d in shifts]
         rem = q_old.new_zeros(n)
         if uplan.rem_dst.shape[0]:
-            rem = rem.index_add(0, uplan.rem_dst, q_old[uplan.rem_src])
+            rem = remainder_add(rem, q_old, uplan.rem_dst, uplan.rem_src,
+                                uplan.rem_cuts)
         rem = _cols(rem, width)
 
         cols = []

@@ -659,8 +659,8 @@ def mainstem_qlat(hyb: HybridDomain, qlat_source, n_rows: int):
 
 def run_mainstem(hyb: HybridDomain, fvd: np.ndarray, ids, q0, qlat_source,
                  dt: float, qts: int, hp, device, *, out_ids=None,
-                 n_qlat_rows: int | None = None, stats: dict | None = None
-                 ) -> dict:
+                 n_qlat_rows: int | None = None, stats: dict | None = None,
+                 group=None) -> dict:
     """Route the diffusive mainstem after the MC run and merge it into the
     MC output (the JAX command line's hybrid branch,
     ``troute_tpu/cli.py:814-979``).
@@ -675,21 +675,24 @@ def run_mainstem(hyb: HybridDomain, fvd: np.ndarray, ids, q0, qlat_source,
             for ``device``, ``diffusive_batching``, ``diffusive_corrector``)
         out_ids: [N] ids of the output rows (default ``ids``)
         stats: the solver's counters (``run_diffusive``)
+        group: a process group whose ranks share the batch's lanes (the
+            JAX command line's sharded branch, ``shard_batched_domains``);
+            every rank returns the whole result.  None routes every lane
+            here.
 
     Returns a dict: 'fvd' [T, N + M, 3] with the M mainstem segments
     appended (flow, 0, depth), 'ids' [N + M], 'diffusive' ({'ids', 'q',
     'depth'} per save), 'seconds' of host wall time, 'n_saves', and
     'dtype' and 'nel' as resolved.
 
-    Two branches of the JAX command line are left out: the float64
-    fallback to the host CPU (``F64_OFFCPU_MAX_R``), which works around a
-    fault of the TPU toolchain (a GPU computes float64 natively), and
-    ``shard_batched_domains`` (multi-device routing, ROADMAP A13).
+    One branch of the JAX command line is left out: the float64 fallback
+    to the host CPU (``F64_OFFCPU_MAX_R``), which works around a fault of
+    the TPU toolchain (a GPU computes float64 natively).
     """
     from troute_torch.diffusive.domain import stack_domains
     from troute_torch.diffusive.solver import (
-        initialize_state, initialize_state_batched, run_diffusive,
-        run_diffusive_batched)
+        gather_batched_saves, initialize_state, initialize_state_batched,
+        run_diffusive, run_diffusive_batched, shard_batched_domains)
     from troute_torch.network.builder import positions_of
 
     t_start = time.time()
@@ -729,9 +732,15 @@ def run_mainstem(hyb: HybridDomain, fvd: np.ndarray, ids, q0, qlat_source,
         q_init = torch.clamp_min(torch.full((B, Rb, Cb), q0val, dtype=dtype,
                                             device=device), 0.1)
         dst = initialize_state_batched(bdom, q_init, dtini_min=dt / 10.0)
+        run_dom = bdom
+        if group is not None:
+            # each rank routes a contiguous slice of the independent lanes
+            run_dom, dst, _ = shard_batched_domains(bdom, dst, group)
         dst, bsaves = run_diffusive_batched(
-            bdom, dst, t_final=total_steps * dt, save_interval=dt,
+            run_dom, dst, t_final=total_steps * dt, save_interval=dt,
             corrector_mode=mode, stats=stats)
+        if group is not None:
+            bsaves = gather_batched_saves(bsaves, B, group)
         # scatter the lanes back into the merged [R, C] layout (every tree
         # pads to the widest reach, so lane rows are right-aligned at the
         # merged width); one transfer for z and dx, one for the saves

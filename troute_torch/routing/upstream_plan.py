@@ -169,22 +169,53 @@ def build_upstream_plan(upstream: np.ndarray, n_pad: int,
         upstream_sorted=up_sorted.astype(np.int32))
 
 
+def remainder_layers(rem_dst, rem_src):
+    """The remainder edges regrouped in layers: layer j holds each node's
+    j-th remainder edge (in the plan's edge order), so no layer names a
+    node twice.  Returns (dst, src, cuts): int64 arrays in layer order and
+    the offsets where layers 1, 2, ... begin.  Adding the layers in turn
+    adds each node's terms in the plan's order, and a layer's
+    ``index_add`` writes each node once, so on CUDA (atomic adds) the sum
+    is deterministic and equals the CPU's sequential ``index_add``."""
+    dst = np.asarray(rem_dst, np.int64)
+    src = np.asarray(rem_src, np.int64)
+    if dst.size == 0:
+        return dst, src, ()
+    order = np.argsort(dst, kind="stable")
+    ds = dst[order]
+    occ = np.empty(dst.size, np.int64)
+    occ[order] = np.arange(ds.size) - np.searchsorted(ds, ds)
+    layered = np.lexsort((np.arange(dst.size), occ))
+    cuts = np.searchsorted(occ[layered], np.arange(1, occ.max() + 1))
+    return dst[layered], src[layered], tuple(int(c) for c in cuts)
+
+
 class UpstreamOp(NamedTuple):
-    """A plan's arrays on one device, callable as the upstream sum."""
+    """A plan's arrays on one device, callable as the upstream sum.  The
+    remainder edges are in ``remainder_layers``' order with ``rem_cuts``
+    its layer offsets (none: one layer, as a plan carried from the JAX
+    package is)."""
 
     masks: torch.Tensor       # bool [D, n_pad]
     rem_dst: torch.Tensor     # int64 [E_rem]
     rem_src: torch.Tensor     # int64 [E_rem]
     shifts: tuple[int, ...]
+    rem_cuts: tuple[int, ...] = ()
 
     @classmethod
     def from_plan(cls, plan: UpstreamPlan, *, device) -> "UpstreamOp":
-        return cls(torch.as_tensor(plan.masks, device=device),
-                   torch.as_tensor(plan.rem_dst, dtype=torch.int64,
-                                   device=device),
-                   torch.as_tensor(plan.rem_src, dtype=torch.int64,
-                                   device=device),
-                   tuple(plan.shifts))
+        return cls.from_arrays(plan.masks, plan.rem_dst, plan.rem_src,
+                               plan.shifts, device=device)
+
+    @classmethod
+    def from_arrays(cls, masks, rem_dst, rem_src, shifts, *,
+                    device) -> "UpstreamOp":
+        """From host remainder arrays, regrouped in layers (``masks`` a
+        host array or a tensor)."""
+        dst, src, cuts = remainder_layers(rem_dst, rem_src)
+        return cls(torch.as_tensor(masks, device=device),
+                   torch.as_tensor(dst, device=device),
+                   torch.as_tensor(src, device=device), tuple(shifts), cuts)
 
     @property
     def n_pad(self) -> int:
@@ -192,17 +223,29 @@ class UpstreamOp(NamedTuple):
 
     def __call__(self, q: torch.Tensor) -> torch.Tensor:
         return banded_upstream_sum(q, self.masks, self.shifts,
-                                   self.rem_dst, self.rem_src)
+                                   self.rem_dst, self.rem_src, self.rem_cuts)
+
+
+def remainder_add(up, q, rem_dst, rem_src, rem_cuts: tuple[int, ...] = ()):
+    """``up`` plus q[rem_src] at rem_dst, one ``index_add`` per layer of
+    ``remainder_layers`` (``rem_cuts`` its offsets)."""
+    bounds = (0,) + tuple(rem_cuts) + (rem_dst.shape[0],)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        up = up.index_add(0, rem_dst[a:b], q[rem_src[a:b]])
+    return up
 
 
 def banded_upstream_sum(q, masks, shifts: tuple[int, ...],
-                        rem_dst=None, rem_src=None):
+                        rem_dst=None, rem_src=None,
+                        rem_cuts: tuple[int, ...] = ()):
     """[n_pad] upstream-flow sum via masked shifts (see module docstring).
 
     The terms are added in the plan's order: the shifts in turn, then the
-    remainder through ``index_add``.  On the CPU ``index_add`` adds in
-    index order, as the JAX scatter-add does; on CUDA it uses atomics, so
-    a node with two or more remainder edges may add them in another order.
+    remainder through ``index_add``, layer by layer (``remainder_add``).
+    On the CPU ``index_add`` adds in index order, as the JAX scatter-add
+    does; on CUDA it uses atomics, which add a node's terms in the plan's
+    order only when each layer names the node once: remainders in
+    ``remainder_layers``' order with their ``rem_cuts``.
     """
     n = q.shape[0]
     up = torch.zeros_like(q)
@@ -215,5 +258,5 @@ def banded_upstream_sum(q, masks, shifts: tuple[int, ...],
         for i, d in enumerate(shifts):
             up = up + torch.where(masks[i], qx[lo - d:lo - d + n], 0.0)
     if rem_dst is not None and rem_dst.shape[0]:
-        up = up.index_add(0, rem_dst, q[rem_src])
+        up = remainder_add(up, q, rem_dst, rem_src, rem_cuts)
     return up
