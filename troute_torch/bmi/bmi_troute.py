@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from troute_torch.tracing import span
+
 _SEGMENT_VARS = ("segment_id", "segment_toid", "dx", "n", "ncc", "s0",
                  "bw", "tw", "twcc", "alt", "musk", "musx", "cs")
 _WATERBODY_VARS = ("waterbody_id", "waterbody_toid", "LkArea", "LkMxE",
@@ -371,68 +373,61 @@ class BmiTroute:
             decay_coeff=120.0)
 
     def update_until(self, until: float) -> None:
+        """Route from the current time to ``until``: the pushed arrays go
+        to the device (span ``bmi.ingest``), the engine runs
+        (``engine.route``), and the outputs come back to the host
+        (``bmi.publish``), all inside the span ``bmi.update_until``."""
+        with span("bmi.update_until"):
+            self._update_until(until)
+
+    def _update_until(self, until: float) -> None:
         from troute_torch.routing.engine import (RoutingConfig, route,
                                                  route_stepped)
 
-        if not self._network_ready:
-            self._build_network()
-        nts = max(int(round((until - self._time) / self._dt)), 1)
+        with span("bmi.ingest"):
+            if not self._network_ready:
+                self._build_network()
+            nts = max(int(round((until - self._time) / self._dt)), 1)
 
-        v = self._values
-        dev = self._device
-        n = self._topo.n_nodes
-        ql = np.zeros((1, n), np.float32)
-        qsrc = np.asarray(
-            v.get("land_surface_water_source__volume_flow_rate",
-                  np.zeros(0)), np.float64)
-        seg_ids = np.asarray(v["segment_id"], np.int64)
-        m = min(seg_ids.size, qsrc.size)
-        rows, found = self._rows_of(seg_ids[:m])
-        ql[0, rows[found]] = qsrc[:m][found]
+            v = self._values
+            dev = self._device
+            n = self._topo.n_nodes
+            ql = np.zeros((1, n), np.float32)
+            qsrc = np.asarray(
+                v.get("land_surface_water_source__volume_flow_rate",
+                      np.zeros(0)), np.float64)
+            seg_ids = np.asarray(v["segment_id"], np.int64)
+            m = min(seg_ids.size, qsrc.size)
+            rows, found = self._rows_of(seg_ids[:m])
+            ql[0, rows[found]] = qsrc[:m][found]
 
-        # domain-split upstream boundary hand-off: [id, q, v, d] tuples
-        up_fvd = np.asarray(v.get("upstream_fvd", np.zeros(0)), np.float64)
-        up_ids = np.asarray(v.get("upstream_id", np.zeros(0)), np.int64)
-        q = self._q
-        if up_ids.size:
-            up_rows, up_found = self._rows_of(up_ids)
-            up_rows = up_rows[up_found]
-            vals = up_fvd.reshape(up_ids.size, -1)[:, 0]
-            q = q.clone()
-            q[torch.as_tensor(up_rows, device=dev)] = torch.as_tensor(
-                vals[:up_rows.size], dtype=q.dtype, device=dev)
+            # domain-split upstream boundary hand-off: [id, q, v, d] tuples
+            up_fvd = np.asarray(v.get("upstream_fvd", np.zeros(0)),
+                                np.float64)
+            up_ids = np.asarray(v.get("upstream_id", np.zeros(0)), np.int64)
+            q = self._q
+            if up_ids.size:
+                up_rows, up_found = self._rows_of(up_ids)
+                up_rows = up_rows[up_found]
+                vals = up_fvd.reshape(up_ids.size, -1)[:, 0]
+                q = q.clone()
+                q[torch.as_tensor(up_rows, device=dev)] = torch.as_tensor(
+                    vals[:up_rows.size], dtype=q.dtype, device=dev)
 
-        # honor the config's timestep coupling like the reference BMI
-        # (troute_model.py passes compute_parameters straight through);
-        # strict runs in its fixed-point form (levels aren't built here)
-        short_ts = bool(self._cfg.compute_parameters.assume_short_ts) \
-            if self._cfg is not None else True
-        cfg = RoutingConfig(dt=self._dt, nts=nts, qts_subdivisions=1,
-                            assume_short_ts=short_ts,
-                            strict_iterative=not short_ts)
-        q_before = _host(q) if self._hyb is not None else None
-        da = self._build_gage_da(nts)
+            # honor the config's timestep coupling like the reference BMI
+            # (troute_model.py passes compute_parameters straight through);
+            # strict runs in its fixed-point form (levels aren't built here)
+            short_ts = bool(self._cfg.compute_parameters.assume_short_ts) \
+                if self._cfg is not None else True
+            cfg = RoutingConfig(dt=self._dt, nts=nts, qts_subdivisions=1,
+                                assume_short_ts=short_ts,
+                                strict_iterative=not short_ts)
+            q_before = _host(q) if self._hyb is not None else None
+            da = self._build_gage_da(nts)
+            qlat = torch.as_tensor(ql, device=dev)
         engine = route_stepped if short_ts else route
         out = engine(self._net, self._chan, self._lp, cfg, q, self._d,
-                     self._elev, torch.as_tensor(ql, device=dev), da)
-        self.last_update_counts = {k: out[k] for k in (
-            "strict_sweeps", "mc_calls") if k in out}
-        st = out["state"]
-        self._q, self._d, self._elev = st.q, st.depth, st.res_elev
-        if da is not None:
-            # hand the updated lastobs state back through the transport
-            # vars (time re-based so it stays relative to current time),
-            # re-keyed to the gages actually used this run
-            from troute_torch.bmi import codec
-            codes, lens = codec.encode_strings(self._da_gages)
-            v["lastObs_gageArray"] = codes
-            v["lastObs_gageStringLengths"] = lens
-            lo_val = _host(st.lastobs_val).astype(np.float64)
-            v["lastObs_discharge"] = lo_val
-            v["lastObs_timeSince"] = np.asarray(
-                nts * self._dt - _host(st.lastobs_time), np.float64)
-            v["lastobs__volume_flow_rate"] = lo_val.copy()
-        fvd = _host(out["flowveldepth"][-1])
+                     self._elev, qlat, da)
 
         # hybrid diffusive mainstem window (config-driven mode only)
         ms_qd = {}
@@ -440,25 +435,45 @@ class BmiTroute:
             ms_qd = self._update_diffusive(q_before, out["flowveldepth"],
                                            nts)
 
-        rows, found = self._rows_of(seg_ids)
-        q_out = np.zeros(seg_ids.size)
-        v_out = np.zeros(seg_ids.size)
-        d_out = np.zeros(seg_ids.size)
-        q_out[found] = fvd[rows[found], 0]
-        v_out[found] = fvd[rows[found], 1]
-        d_out[found] = fvd[rows[found], 2]
-        for k in np.flatnonzero(~found):
-            q_out[k], d_out[k] = ms_qd.get(int(seg_ids[k]), (0.0, 0.0))
-        v["channel_exit_water_x-section__volume_flow_rate"] = q_out
-        v["channel_water_flow__speed"] = v_out
-        v["channel_water__mean_depth"] = d_out
-        res_rows = self._topo.reservoir_rows
-        if res_rows.size:
-            v["lake_water~outgoing__volume_flow_rate"] = \
-                fvd[res_rows, 0].astype(np.float64)
-            v["lake_surface__elevation"] = _host(self._elev).astype(
-                np.float64)
-        self._time = until
+        with span("bmi.publish"):
+            self.last_update_counts = {k: out[k] for k in (
+                "strict_sweeps", "mc_calls") if k in out}
+            st = out["state"]
+            self._q, self._d, self._elev = st.q, st.depth, st.res_elev
+            if da is not None:
+                # hand the updated lastobs state back through the transport
+                # vars (time re-based so it stays relative to current
+                # time), re-keyed to the gages actually used this run
+                from troute_torch.bmi import codec
+                codes, lens = codec.encode_strings(self._da_gages)
+                v["lastObs_gageArray"] = codes
+                v["lastObs_gageStringLengths"] = lens
+                lo_val = _host(st.lastobs_val).astype(np.float64)
+                v["lastObs_discharge"] = lo_val
+                v["lastObs_timeSince"] = np.asarray(
+                    nts * self._dt - _host(st.lastobs_time), np.float64)
+                v["lastobs__volume_flow_rate"] = lo_val.copy()
+            fvd = _host(out["flowveldepth"][-1])
+
+            rows, found = self._rows_of(seg_ids)
+            q_out = np.zeros(seg_ids.size)
+            v_out = np.zeros(seg_ids.size)
+            d_out = np.zeros(seg_ids.size)
+            q_out[found] = fvd[rows[found], 0]
+            v_out[found] = fvd[rows[found], 1]
+            d_out[found] = fvd[rows[found], 2]
+            for k in np.flatnonzero(~found):
+                q_out[k], d_out[k] = ms_qd.get(int(seg_ids[k]), (0.0, 0.0))
+            v["channel_exit_water_x-section__volume_flow_rate"] = q_out
+            v["channel_water_flow__speed"] = v_out
+            v["channel_water__mean_depth"] = d_out
+            res_rows = self._topo.reservoir_rows
+            if res_rows.size:
+                v["lake_water~outgoing__volume_flow_rate"] = \
+                    fvd[res_rows, 0].astype(np.float64)
+                v["lake_surface__elevation"] = _host(self._elev).astype(
+                    np.float64)
+            self._time = until
 
     def _update_diffusive(self, q_before, fvd_all, nts):
         """Advance the diffusive mainstem over this update window, carrying

@@ -48,6 +48,7 @@ from troute_torch.ops.reservoir_da import (
     GreatLakesDAState, HybridDAState, RfcDAState, typed_reservoir_dispatch)
 from troute_torch.routing.upstream_plan import (UpstreamOp, build_upstream_plan,
                                                 remainder_add)
+from troute_torch.tracing import count, device_allocs, span
 
 PAD_MULTIPLE = 1024  # node-axis padding, so the plan's n_pad fits the vectors
 
@@ -381,14 +382,17 @@ def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
     courant), plus the raw ``MCOutput`` with ``want_raw``; courant is
     [N, 3] (cn, ck, X) or None.
     """
-    up_prev = _upstream_sum_stepped(q, upstream, uplan)
+    with span("engine.upstream_sum"):
+        up_prev = _upstream_sum_stepped(q, upstream, uplan)
     if quc is None:
         quc = up_prev
 
-    out = muskingum_cunge_cuda(
-        up_prev, quc, q, ql_t, chan.dx, chan.bw, chan.tw, chan.twcc,
-        chan.n, chan.ncc, chan.cs, chan.s0, depth, dt,
-        with_diagnostics=return_courant, active_rows=active_rows, prev=prev)
+    with span("engine.mc"):
+        out = muskingum_cunge_cuda(
+            up_prev, quc, q, ql_t, chan.dx, chan.bw, chan.tw, chan.twcc,
+            chan.n, chan.ncc, chan.cs, chan.s0, depth, dt,
+            with_diagnostics=return_courant, active_rows=active_rows,
+            prev=prev)
     courant = (torch.stack([out.cn, out.ck, out.X], dim=-1)
                if return_courant else None)
 
@@ -397,11 +401,12 @@ def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
     d_new = torch.where(is_res, depth, out.depthc)
 
     if res_rows.shape[0]:
-        outflow, elev, d_scat, da_states = _reservoirs(
-            res_params, res_da, res_elev, quc[res_rows], da_states,
-            t_seconds, month_i, dt)
-        q_new = q_new.index_put((res_rows,), outflow)
-        d_new = d_new.index_put((res_rows,), d_scat)
+        with span("engine.reservoirs"):
+            outflow, elev, d_scat, da_states = _reservoirs(
+                res_params, res_da, res_elev, quc[res_rows], da_states,
+                t_seconds, month_i, dt)
+            q_new = q_new.index_put((res_rows,), outflow)
+            d_new = d_new.index_put((res_rows,), d_scat)
         res_elev = elev
 
     nudge = q.new_zeros(gage_rows.shape[0])
@@ -676,9 +681,23 @@ def route(net: NetworkArrays, chan: ChannelParams,
 def _drive(driver, net, chan, res_params, cfg, q0, depth0, res_elev0, qlat,
            da, res_da, collect, month_clip: bool):
     """Pad the node axis to the banded plan's length, stage the DA inputs
-    and run ``driver`` over the steps.  ``month_clip``: a month table
-    shorter than the run clips to its last entry (the stepped drivers);
-    else every month is 0 (``route()``'s scan)."""
+    and run ``driver`` over the steps, inside the span ``engine.route``
+    (which also counts the device allocations made in it).
+    ``month_clip``: a month table shorter than the run clips to its last
+    entry (the stepped drivers); else every month is 0 (``route()``'s
+    scan)."""
+    with span("engine.route"):
+        allocs = device_allocs(q0.device)
+        out = _drive_padded(driver, net, chan, res_params, cfg, q0, depth0,
+                            res_elev0, qlat, da, res_da, collect, month_clip)
+        end = device_allocs(q0.device)
+        if allocs is not None and end is not None:
+            count("cuda.device_allocs", end - allocs)
+    return out
+
+
+def _drive_padded(driver, net, chan, res_params, cfg, q0, depth0, res_elev0,
+                  qlat, da, res_da, collect, month_clip: bool):
     device, dtype = q0.device, q0.dtype
     n_real = q0.shape[0]
     pad = (-n_real) % PAD_MULTIPLE
@@ -732,10 +751,11 @@ def _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time, da_states,
                          lastobs_time=lo_time, hybrid=hyb, rfc=rfc, gl=gl)
     out = {"state": state, "flowveldepth": None, "nudge": None}
     if collect:
-        out["flowveldepth"] = torch.stack(fvds)
-        out["nudge"] = torch.stack(nudges)
-        if cfg.return_courant:
-            out["courant"] = torch.stack(courants)
+        with span("engine.collect"):
+            out["flowveldepth"] = torch.stack(fvds)
+            out["nudge"] = torch.stack(nudges)
+            if cfg.return_courant:
+                out["courant"] = torch.stack(courants)
     return out
 
 
@@ -750,21 +770,23 @@ def _route_short(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
     real = _np_dtype(q.dtype)
     fvds, nudges, courants = [], [], []
     for t in range(1, cfg.nts + 1):
-        ql_t, obs_t, month_i = step_inputs(t)
-        # t and dt multiplied in the dtype, as the JAX short driver does
-        t_seconds = float(real(t) * real(cfg.dt))
-        (q, v, depth, res_elev, lo_val, lo_time, nudge, da_states,
-         courant) = _one_short_step(
-            q, depth, res_elev, lo_val, lo_time, ql_t, obs_t, t_seconds,
-            net.upstream, chan, res_params, net.is_reservoir, net.res_rows,
-            gage_rows, decay, cfg.dt, res_da=res_da, da_states=da_states,
-            month_i=month_i, return_courant=cfg.return_courant,
-            uplan=net.uplan)
-        if collect:
-            fvds.append(torch.stack([q, v, depth], dim=-1)[:n_real])
-            nudges.append(nudge)
-            if cfg.return_courant:
-                courants.append(courant[:n_real])
+        with span("engine.step"):
+            ql_t, obs_t, month_i = step_inputs(t)
+            # t and dt multiplied in the dtype, as the JAX short driver does
+            t_seconds = float(real(t) * real(cfg.dt))
+            (q, v, depth, res_elev, lo_val, lo_time, nudge, da_states,
+             courant) = _one_short_step(
+                q, depth, res_elev, lo_val, lo_time, ql_t, obs_t, t_seconds,
+                net.upstream, chan, res_params, net.is_reservoir,
+                net.res_rows, gage_rows, decay, cfg.dt, res_da=res_da,
+                da_states=da_states, month_i=month_i,
+                return_courant=cfg.return_courant, uplan=net.uplan)
+            if collect:
+                with span("engine.collect"):
+                    fvds.append(torch.stack([q, v, depth], dim=-1)[:n_real])
+                    nudges.append(nudge)
+                    if cfg.return_courant:
+                        courants.append(courant[:n_real])
     return _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
                    da_states, collect, fvds, nudges, courants)
 
