@@ -15,7 +15,10 @@ and lite-restart files must stage arrays equal to JAX's, and its
 transport arrays nudge the routing BMI as JAX's do.  The state hand-over
 (``convert.from_bmi_state``): 2 updates in JAX and 2 more in the port
 against 4 in JAX, at rtol 1e-5 and atol 1e-7 on the MC flows and the f32
-bar on the mainstem.
+bar on the mainstem.  The pushed-id row map, which the BMI builds with the
+network and reuses every update: outputs bit for bit those of a fresh
+``positions_of`` lookup over a direct ``route_stepped`` call, a new map
+after every push of the ids, and JAX's outputs after an in-place one.
 """
 
 import h5py
@@ -36,6 +39,10 @@ from troute_torch.bmi import BmiTroute
 from troute_torch.bmi import codec as tcodec
 from troute_torch.bmi.bmi_daforcing import BmiDAforcing as TDAforcing
 from troute_torch.bmi.bmi_reservoirs import BmiReservoir as TReservoir
+from troute_torch.network.builder import positions_of
+from troute_torch.network.topology import NODE_RESERVOIR, build_topology
+from troute_torch.ops.levelpool import LevelpoolParams
+from troute_torch.routing import engine
 from troute_tpu.bmi import BmiTrouteTpu
 from troute_tpu.bmi import codec as jcodec
 from troute_tpu.bmi.bmi_daforcing import BmiDAforcing as JDAforcing
@@ -502,3 +509,209 @@ def test_daforcing_transport_nudges_routing(da_pair):
         free.update_until(h * 1800.0)
     assert not np.allclose(free.get_value(Q)[[1, 3]],
                            res["BmiTroute"][0][[1, 3]], rtol=1e-3)
+
+
+# ----------------------------------------------- the pushed-id row map
+INFLOW = "land_surface_water_source__volume_flow_rate"
+OUTPUTS = (Q, "channel_water_flow__speed", "channel_water__mean_depth",
+           "lake_water~outgoing__volume_flow_rate", "lake_surface__elevation")
+CHANNEL = ("dx", "bw", "tw", "twcc", "n", "ncc", "cs", "s0")
+LAKE_COLUMNS = ("LkArea", "LkMxE", "OrificeA", "OrificeC", "OrificeE",
+                "WeirC", "WeirE", "WeirL", "ifd")
+
+
+def _shuffled_pushes(seed, n=3000, n_lakes=10):
+    """A drainage tree of ``n`` segments with scattered ids, pushed in an
+    order drawn from ``seed``, and ``n_lakes`` level-pool lakes, each
+    between a segment and that segment's downstream segment."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(10 * n, n, replace=False).astype(np.int64) + 1
+    k = np.arange(1, n)
+    parent = k - 1 - (rng.random(n - 1) * np.minimum(k, 50)).astype(np.int64)
+    down = np.concatenate([[0], ids[parent]])
+    seg = rng.choice(k, n_lakes, replace=False)
+    lakes = 10**7 + np.arange(n_lakes, dtype=np.int64)
+    toid = down.copy()
+    toid[seg] = lakes
+    perm = rng.permutation(n)
+    bw = rng.uniform(2.0, 20.0, n)
+    v = dict(segment_id=ids[perm], segment_toid=toid[perm],
+             dx=rng.uniform(500.0, 3000.0, n)[perm], bw=bw[perm],
+             tw=3.0 * bw[perm], twcc=9.0 * bw[perm],
+             n=rng.uniform(0.03, 0.08, n)[perm],
+             ncc=rng.uniform(0.06, 0.16, n)[perm],
+             cs=rng.uniform(0.5, 1.0, n)[perm],
+             s0=rng.uniform(0.001, 0.01, n)[perm],
+             waterbody_id=lakes, waterbody_toid=down[seg],
+             LkArea=rng.uniform(1.0, 3.0, n_lakes),
+             qd0=rng.uniform(0.0, 0.5, n_lakes))
+    for name, val in zip(LAKE_COLUMNS[1:],
+                         (12.0, 1.2, 0.1, 8.0, 0.4, 11.0, 12.0, 0.9)):
+        v[name] = np.full(n_lakes, val)
+    v["h0"] = rng.uniform(8.5, 11.5, n_lakes)
+    return v
+
+
+def _pushed(v):
+    bmi = BmiTroute(device="cpu")
+    bmi.initialize()
+    for name, val in v.items():
+        bmi.set_value(name, val.copy())
+    return bmi
+
+
+class _FreshLookup:
+    """The BMI's update by hand: the network the pushes describe, each
+    pushed array put on its topology rows by a fresh ``positions_of``
+    lookup, one direct ``route_stepped`` call per update."""
+
+    def __init__(self, v):
+        f32 = np.float32
+        self.seg = np.asarray(v["segment_id"], np.int64)
+        wb = v["waterbody_id"]
+        ids = np.concatenate([self.seg, wb])
+        down = np.concatenate([v["segment_toid"], v["waterbody_toid"]])
+        node_type = np.concatenate([np.zeros(self.seg.size, np.int8),
+                                    np.full(wb.size, NODE_RESERVOIR,
+                                            np.int8)])
+        self.topo = topo = build_topology(ids, down, node_type)
+        n = topo.n_nodes
+        rows, _ = positions_of(topo.ids, self.seg)
+        chan = {}
+        for k in CHANNEL:
+            chan[k] = np.ones(n, f32)
+            chan[k][rows] = v[k]
+        lake_rows, _ = positions_of(topo.ids, wb)
+        slot, _ = positions_of(topo.reservoir_rows, lake_rows)
+        parm = np.ones((wb.size, 9))
+        parm[slot] = np.stack([v[c] for c in LAKE_COLUMNS], 1)
+        elev = np.zeros(wb.size, f32)
+        elev[slot] = v["h0"]
+        q0, d0 = np.zeros(n, f32), np.zeros(n, f32)
+        q0[lake_rows] = v["qd0"]
+        d0[lake_rows] = elev[slot]
+        self.args = (engine.network_arrays_from_topology(topo, device="cpu"),
+                     engine.ChannelParams.from_arrays(device="cpu",
+                                                      dtype=torch.float32,
+                                                      **chan),
+                     LevelpoolParams.from_array(parm.astype(f32),
+                                                device="cpu",
+                                                dtype=torch.float32),
+                     engine.RoutingConfig(dt=300.0, nts=12,
+                                          qts_subdivisions=1,
+                                          assume_short_ts=True,
+                                          strict_iterative=False))
+        self.state = tuple(torch.as_tensor(a) for a in (q0, d0, elev))
+
+    def update(self, inflow):
+        n = self.topo.n_nodes
+        rows, found = positions_of(self.topo.ids, self.seg)
+        ql = np.zeros((1, n), np.float32)
+        ql[0, rows[found]] = inflow[found]
+        out = engine.route_stepped(*self.args, *self.state,
+                                   torch.as_tensor(ql))
+        st = out["state"]
+        self.state = (st.q, st.depth, st.res_elev)
+        fvd = out["flowveldepth"][-1].numpy()
+        rows, found = positions_of(self.topo.ids, self.seg)
+        chan = [np.zeros(self.seg.size) for _ in range(3)]
+        for j, a in enumerate(chan):
+            a[found] = fvd[rows[found], j]
+        return chan + [fvd[self.topo.reservoir_rows, 0].astype(np.float64),
+                       st.res_elev.numpy().astype(np.float64)]
+
+
+def _same_update(bmi, lookup, inflow):
+    bmi.set_value(INFLOW, inflow)
+    bmi.update_until(bmi.get_current_time() + 3600.0)
+    want = lookup.update(inflow)
+    for name, w in zip(OUTPUTS, want):
+        g = bmi.get_value(name)
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert np.array_equal(g, w), name
+    assert np.abs(want[0]).max() > 0
+
+
+def test_row_map_outputs_equal_a_fresh_lookup_bit_for_bit():
+    v = _shuffled_pushes(5120000005)
+    bmi, lookup = _pushed(v), _FreshLookup(v)
+    rng = np.random.default_rng(1)
+    for _ in range(4):
+        _same_update(bmi, lookup, rng.uniform(0.0, 0.0274,
+                                              v["segment_id"].size))
+
+
+def _rename_a_confluence(bmi, v, push):
+    """Give a segment that others drain into a new id through ``push``
+    (``set_value_at_indices`` or a write through ``get_value_ptr``): the
+    pushed order no longer names that topology row."""
+    k = int(np.flatnonzero(np.isin(v["segment_id"], v["segment_toid"]))[0])
+    new = int(v["segment_id"].max()) + 1
+    if push == "set_value_at_indices":
+        bmi.set_value_at_indices("segment_id", np.array([k]), np.array([new]))
+    else:
+        bmi.get_value_ptr("segment_id")[k] = new
+    v["segment_id"] = v["segment_id"].copy()
+    v["segment_id"][k] = new
+
+
+@pytest.mark.parametrize("push", ["set_value", "set_value_at_indices",
+                                  "get_value_ptr"])
+def test_row_map_follows_every_push_of_the_ids(push, monkeypatch):
+    """A ``set_value`` of the ids rebuilds the network and the map; an
+    in-place write keeps the network and its state, as the JAX package
+    does, and only the map follows the new ids."""
+    v = _shuffled_pushes(31)
+    bmi, lookup = _pushed(v), _FreshLookup(v)
+    builds = []
+    build = BmiTroute._build_network
+    monkeypatch.setattr(BmiTroute, "_build_network",
+                        lambda self: (builds.append(1), build(self))[1])
+    rng = np.random.default_rng(2)
+    n = v["segment_id"].size
+
+    def inflow():
+        return rng.uniform(0.0, 0.0274, n)
+    _same_update(bmi, lookup, inflow())
+    _same_update(bmi, lookup, inflow())
+    assert len(builds) == 1          # pushing the inflow rebuilds nothing
+    if push == "set_value":
+        perm = rng.permutation(n)
+        for name in ("segment_id", "segment_toid") + CHANNEL:
+            v[name] = v[name][perm]
+            bmi.set_value(name, v[name].copy())
+        lookup = _FreshLookup(v)
+    else:
+        _rename_a_confluence(bmi, v, push)
+        lookup.seg = v["segment_id"]
+    _same_update(bmi, lookup, inflow())
+    _same_update(bmi, lookup, inflow())
+    assert len(builds) == (2 if push == "set_value" else 1)
+
+
+@pytest.mark.parametrize("push", ["set_value_at_indices", "get_value_ptr"])
+def test_ids_written_in_place_route_as_in_jax(push):
+    """The same in-place rename of a segment id, between updates, in the
+    port and in the JAX package: every output agrees (rtol 1e-5,
+    atol 1e-7) before and after it."""
+    v = _shuffled_pushes(53, n=300, n_lakes=3)
+    rng = np.random.default_rng(4)
+    flows = [rng.uniform(0.0, 0.0274, 300) for _ in range(4)]
+    res = []
+    for bmi in _pair():
+        bmi.initialize()
+        w = {k: a.copy() for k, a in v.items()}
+        for name, val in w.items():
+            bmi.set_value(name, val.copy())
+        got = []
+        for h, q in enumerate(flows):
+            if h == 2:
+                _rename_a_confluence(bmi, w, push)
+            bmi.set_value(INFLOW, q)
+            bmi.update_until(bmi.get_current_time() + 3600.0)
+            got.append([bmi.get_value(name) for name in OUTPUTS])
+        res.append(got)
+    assert np.abs(res[0][-1][0]).max() > 0
+    for g_h, w_h in zip(*res):
+        for name, g, w in zip(OUTPUTS, g_h, w_h):
+            np.testing.assert_allclose(g, w, err_msg=name, **TOL)

@@ -17,7 +17,9 @@ form (``strict_iterative``).  The JAX package maps ``compute_kernel:
 auto`` to its XLA engine here, where its command line resolves it by size
 (``troute_tpu/bmi/bmi_troute.py:393-396``); the port has one engine, so
 the two cannot disagree.  Host arrays go to the device once per update
-(lateral inflow, DA), and the last step's flows come back once.
+(lateral inflow, DA), and the last step's flows come back once.  The
+rows of the pushed segment order are looked up once and reused by every
+update until the network or the pushed ids change.
 
 Domain-split runs: ``upstream_fvd`` accepts another instance's boundary
 flows exactly like the reference's ``bmi`` parallel compute method
@@ -105,6 +107,9 @@ class BmiTroute:
         self._initialized = False
         self._network_ready = False
         self._hyb = None
+        # (topology, pushed segment ids, their rows, found) of the last
+        # lookup of the pushed order; see _pushed_rows
+        self._seg_map = (None, None, None, None)
         # the engine's counters of the last update: 'strict_sweeps' (per
         # step) and 'mc_calls' (MC solves) of a fixed-point update
         self.last_update_counts: dict = {}
@@ -215,6 +220,18 @@ class BmiTroute:
         from troute_torch.network.builder import positions_of
         return positions_of(np.asarray(self._topo.ids, np.int64), ids)
 
+    def _pushed_rows(self) -> tuple:
+        """``_rows_of`` the pushed ``segment_id`` order, looked up again
+        only when the network was rebuilt or the pushed ids differ from
+        those of the last lookup (a ``set_value_at_indices`` or a write
+        through ``get_value_ptr`` changes them without a rebuild)."""
+        seg_ids = np.asarray(self._values["segment_id"], np.int64)
+        topo, ids, rows, found = self._seg_map
+        if topo is not self._topo or not np.array_equal(ids, seg_ids):
+            rows, found = self._rows_of(seg_ids)
+            self._seg_map = (self._topo, seg_ids.copy(), rows, found)
+        return rows, found
+
     def _build_network(self):
         """The network pushed through ``set_value`` (segment and waterbody
         arrays), in the pushed row order."""
@@ -246,13 +263,13 @@ class BmiTroute:
                 set(down.tolist()) - set(node_ids.tolist())) + (0,))
         self._topo = topo
         n = topo.n_nodes
+        seg_rows, _ = self._pushed_rows()
 
         def col(name, default=1.0):
             out = np.full(n, default, np.float32)
             arr = np.asarray(v.get(name, np.zeros(0)), np.float64)
             m = min(arr.size, seg_ids.size)
-            rows, _ = self._rows_of(seg_ids[:m])
-            out[rows] = arr[:m]
+            out[seg_rows[:m]] = arr[:m]
             return out
 
         self._chan = ChannelParams.from_arrays(
@@ -398,7 +415,8 @@ class BmiTroute:
                       np.zeros(0)), np.float64)
             seg_ids = np.asarray(v["segment_id"], np.int64)
             m = min(seg_ids.size, qsrc.size)
-            rows, found = self._rows_of(seg_ids[:m])
+            seg_rows, seg_found = self._pushed_rows()
+            rows, found = seg_rows[:m], seg_found[:m]
             ql[0, rows[found]] = qsrc[:m][found]
 
             # domain-split upstream boundary hand-off: [id, q, v, d] tuples
@@ -455,7 +473,7 @@ class BmiTroute:
                 v["lastobs__volume_flow_rate"] = lo_val.copy()
             fvd = _host(out["flowveldepth"][-1])
 
-            rows, found = self._rows_of(seg_ids)
+            rows, found = seg_rows, seg_found
             q_out = np.zeros(seg_ids.size)
             v_out = np.zeros(seg_ids.size)
             d_out = np.zeros(seg_ids.size)
