@@ -396,7 +396,7 @@ def assemble_reservoir_da(cfg, built, base, t0, nts, dt, dtype, device):
                                          device=device),
             update_time=zeros(), persistence_index=zeros(),
             persistence_update_time=zeros()),
-        month_idx=_tensor(months, torch.int32, device),
+        month_idx=_tensor(months, torch.int32, "cpu"),
         **rfc_fields, **gl_fields)
 
 
@@ -511,8 +511,8 @@ def _run(args, device, group) -> dict:
     from troute_torch.network.builder import build_network
     from troute_torch.ops.levelpool import LevelpoolParams
     from troute_torch.routing.engine import (
-        ChannelParams, RoutingConfig, network_arrays_from_topology, route,
-        route_stepped)
+        ChannelParams, RoutingConfig, da_handoff,
+        network_arrays_from_topology, route, route_stepped)
 
     world = 1 if group is None else dist.get_world_size(group)
     # rank 0 alone writes files (outputs, restarts, logs)
@@ -726,19 +726,6 @@ def _run(args, device, group) -> dict:
             next_forcing = None
         task_times["forcing_time"] += time.time() - t_start
 
-        set_da = da
-        if da is not None and step_offset:
-            set_da = da._replace(obs=da.obs[step_offset:])
-        set_res_da = res_da
-        if res_da is not None and step_offset:
-            # re-base observation/update clocks to this run set's t0
-            # (reference hand-off: mc_reach.pyx:822-836 subtracts the
-            # elapsed seconds from all DA update-time state)
-            off = step_offset * dt
-            set_res_da = res_da._replace(
-                hybrid_obs_time=res_da.hybrid_obs_time - off,
-                gl_obs_time=res_da.gl_obs_time - off,
-                month_idx=res_da.month_idx[step_offset:])
         t_start = time.time()
         # compute_kernel ("auto", "pallas", "tpu", "xla", ...) selects
         # nothing here: short and fixed-point steps take route_stepped,
@@ -768,35 +755,18 @@ def _run(args, device, group) -> dict:
                          part.perm_pairs.shape[0], time.time() - t_part)
             out = route_sharded_global(
                 group, topo, built.chan, built.res_params, rcfg, q0, d0,
-                elev0, ql, da=set_da, res_da=set_res_da, part=part,
+                elev0, ql, da=da, res_da=res_da, part=part,
                 dtype=dtype, device=device)
         else:
             out = (route if level_scan else route_stepped)(
                 net, cp, lp, rcfg, q0, d0, elev0, _tensor(ql, dtype, device),
-                set_da, set_res_da)
+                da, res_da)
         state = out["state"]
         q0, d0, elev0 = state.q, state.depth, state.res_elev
         set_seconds = run["nts"] * dt
-        if da is not None:
-            da = da._replace(lastobs_val=state.lastobs_val,
-                             lastobs_time=state.lastobs_time - set_seconds)
-        if res_da is not None:
-            hyb_state = state.hybrid._replace(
-                update_time=state.hybrid.update_time - set_seconds,
-                persistence_update_time=(
-                    state.hybrid.persistence_update_time - set_seconds))
-            rfc_state = state.rfc._replace(
-                update_time=state.rfc.update_time - set_seconds)
-            # Great Lakes state persists across run sets with its clocks
-            # re-based, like the reference great_lake.update_after_compute
-            # (DataAssimilation.py:751-791): keep assimilated outflows,
-            # subtract the elapsed set seconds from the time state
-            gl_state = state.gl._replace(
-                assimilated_time=state.gl.assimilated_time - set_seconds,
-                update_time=state.gl.update_time - set_seconds)
-            res_da = res_da._replace(hybrid_state0=hyb_state,
-                                     rfc_state0=rfc_state,
-                                     gl_state0=gl_state)
+        # the next run set's DA inputs: observations from its start, DA
+        # state handed on with its clocks re-based to that start
+        da, res_da = da_handoff(da, res_da, state, run["nts"], set_seconds)
         all_fvd.append(_host(out["flowveldepth"]))
         if out.get("nudge") is not None and out["nudge"].numel():
             all_nudge.append(_host(out["nudge"]))
@@ -841,13 +811,11 @@ def _run(args, device, group) -> dict:
                 seconds=(step_offset + run["nts"]) * dt)
             p = lo_dir / ("nudgingLastObs."
                           + set_end.strftime("%Y-%m-%d_%H:%M:%S") + ".nc")
-            # state.lastobs_time is relative to the run set's START; the
-            # file is stamped at the set END, so re-base the offsets the
-            # same way the hand-off does (= da.lastobs_time)
+            # the file is stamped at the set's end, where the handed-on
+            # offsets start
             written.append(write_lastobs_nc(
-                p, built.gage_ids,
-                _host(state.lastobs_time) - set_seconds,
-                _host(state.lastobs_val), set_end))
+                p, built.gage_ids, _host(da.lastobs_time),
+                _host(da.lastobs_val), set_end))
         if comp.return_courant and out.get("courant") is not None:
             all_courant.append(_host(out["courant"]))
         task_times["route_time"] += time.time() - t_start

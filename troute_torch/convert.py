@@ -107,6 +107,8 @@ def from_reservoir_da(rd, *, device, dtype) -> ReservoirDAData:
             vals[f] = from_gl_state(v, **kw)
         elif f == "obs_lookback_hours":
             vals[f] = float(v)
+        elif f == "month_idx":
+            vals[f] = _t(v, device="cpu", dtype=dtype)
         else:
             vals[f] = _t(v, **kw)
     return ReservoirDAData(**vals)

@@ -77,7 +77,7 @@ class ShardedResDA(NamedTuple):
     gl_obs_time: torch.Tensor
     gl_climatology: torch.Tensor      # [R, 12]
     gl0: GreatLakesDAState
-    month_idx: torch.Tensor           # int32 [nts+1]
+    month_idx: torch.Tensor           # int32 [nts+1], on the host
     obs_lookback_hours: float
 
 
@@ -309,7 +309,7 @@ def shard_reservoir_da(part: NetworkPartition, topo, res_da, res_slots, *,
         gl_obs_time=take(res_da.gl_obs_time),
         gl_climatology=take(res_da.gl_climatology),
         gl0=take_state(res_da.gl_state0),
-        month_idx=t(host(res_da.month_idx)),
+        month_idx=torch.as_tensor(host(res_da.month_idx)),
         obs_lookback_hours=float(res_da.obs_lookback_hours))
 
 

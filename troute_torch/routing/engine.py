@@ -116,7 +116,9 @@ class ReservoirDAData(NamedTuple):
     gl_obs_time: torch.Tensor         # [n_res, n_gobs]
     gl_climatology: torch.Tensor      # [n_res, 12]
     gl_state0: GreatLakesDAState
-    month_idx: torch.Tensor           # int32 [nts+1] calendar month-1
+    # int32 [nts+1] calendar month-1, on the host (the drivers read it
+    # there once a call; a device tensor costs a copy back each call)
+    month_idx: torch.Tensor
     obs_lookback_hours: float = 48.0
 
     @classmethod
@@ -149,7 +151,7 @@ class ReservoirDAData(NamedTuple):
             gl_state0=GreatLakesDAState(
                 assimilated_outflow=nan(n), assimilated_time=f(n),
                 update_time=f(n)),
-            month_idx=i32(nts + 1))
+            month_idx=torch.zeros(nts + 1, dtype=torch.int32))
 
 
 class RoutingConfig(NamedTuple):
@@ -262,11 +264,15 @@ def _nudge(model, t_seconds: float, decay_coeff: float, lastobs_val,
 
 def _apply_nudging(q, t_seconds: float, da: GageDA, lastobs_val,
                    lastobs_time, obs_t):
-    """Vectorized ``simple_da`` over all gages of ``da``."""
-    replaced, nudge, new_val, new_time = _nudge(
-        q[da.rows], t_seconds, da.decay_coeff, lastobs_val, lastobs_time,
-        obs_t)
-    q = q.index_put((da.rows,), replaced)
+    """Vectorized ``simple_da`` over all gages of ``da``, inside the span
+    ``engine.nudge``; the counter ``engine.nudge_lanes`` adds the gage
+    lanes."""
+    with span("engine.nudge"):
+        count("engine.nudge_lanes", da.rows.shape[0])
+        replaced, nudge, new_val, new_time = _nudge(
+            q[da.rows], t_seconds, da.decay_coeff, lastobs_val,
+            lastobs_time, obs_t)
+        q = q.index_put((da.rows,), replaced)
     return q, nudge, new_val, new_time
 
 
@@ -351,14 +357,17 @@ def _reservoirs(res_params: LevelpoolParams, res_da, res_elev, inflow,
     if res_da is None:
         return lp_out, lp_elev, lp_elev, da_states
     hyb_s, rfc_s, gl_s = da_states
-    outflow, elev, d_scat, hyb_s, rfc_s, gl_s = typed_reservoir_dispatch(
-        res_da.wbody_type, res_da.hybrid_obs, res_da.hybrid_obs_time, hyb_s,
-        res_da.rfc_series, res_da.rfc_counts, res_da.rfc_use,
-        res_da.rfc_timestep, res_da.rfc_persist_seconds, rfc_s,
-        res_da.gl_obs, res_da.gl_obs_time, res_da.gl_climatology, gl_s,
-        res_da.obs_lookback_hours, res_elev, inflow, lp_out, lp_elev,
-        t_seconds, month_i, res_params.area, res_params.max_depth,
-        res_params.orifice_elev, dt)
+    # every DA kind is computed, masked, on every reservoir lane
+    with span("engine.reservoir_da"):
+        count("engine.reservoir_da_lanes", res_da.wbody_type.shape[0])
+        outflow, elev, d_scat, hyb_s, rfc_s, gl_s = typed_reservoir_dispatch(
+            res_da.wbody_type, res_da.hybrid_obs, res_da.hybrid_obs_time,
+            hyb_s, res_da.rfc_series, res_da.rfc_counts, res_da.rfc_use,
+            res_da.rfc_timestep, res_da.rfc_persist_seconds, rfc_s,
+            res_da.gl_obs, res_da.gl_obs_time, res_da.gl_climatology, gl_s,
+            res_da.obs_lookback_hours, res_elev, inflow, lp_out, lp_elev,
+            t_seconds, month_i, res_params.area, res_params.max_depth,
+            res_params.orifice_elev, dt)
     return outflow, elev, d_scat, (hyb_s, rfc_s, gl_s)
 
 
@@ -678,6 +687,47 @@ def route(net: NetworkArrays, chan: ChannelParams,
                   qlat, da, res_da, True, month_clip=False)
 
 
+def da_handoff(da: GageDA | None, res_da: ReservoirDAData | None,
+               state: RoutingState, steps: int, seconds: float) -> tuple:
+    """The DA inputs of the next window, from those of a window of
+    ``steps`` steps and ``seconds`` seconds and the ``state`` it ended
+    in: (``GageDA`` or None, ``ReservoirDAData`` or None).
+
+    The reference's run-set hand-off (``mc_reach.pyx:822-836`` subtracts
+    the elapsed seconds from every DA clock): the gage observations drop
+    the window's rows; the last observations are handed on, their times
+    re-based to the next window's start; the hybrid, RFC and Great Lakes
+    states are handed on with their clocks re-based (the Great Lakes keep
+    their assimilated outflows, as ``great_lake.update_after_compute``
+    does, ``DataAssimilation.py:751-791``); the reservoir observation
+    times are re-based and the month table drops the window's steps,
+    keeping at least its last entry (a short table clips to it).
+    """
+    if da is None and res_da is None:
+        return da, res_da
+    with span("engine.da_handoff"):
+        if da is not None:
+            da = da._replace(obs=da.obs[steps:],
+                             lastobs_val=state.lastobs_val,
+                             lastobs_time=state.lastobs_time - seconds)
+        if res_da is not None:
+            hyb, rfc, gl = state.hybrid, state.rfc, state.gl
+            months = res_da.month_idx
+            res_da = res_da._replace(
+                hybrid_obs_time=res_da.hybrid_obs_time - seconds,
+                gl_obs_time=res_da.gl_obs_time - seconds,
+                month_idx=months[min(steps, months.shape[0] - 1):],
+                hybrid_state0=hyb._replace(
+                    update_time=hyb.update_time - seconds,
+                    persistence_update_time=(hyb.persistence_update_time
+                                             - seconds)),
+                rfc_state0=rfc._replace(update_time=rfc.update_time - seconds),
+                gl_state0=gl._replace(
+                    assimilated_time=gl.assimilated_time - seconds,
+                    update_time=gl.update_time - seconds))
+    return da, res_da
+
+
 def _drive(driver, net, chan, res_params, cfg, q0, depth0, res_elev0, qlat,
            da, res_da, collect, month_clip: bool):
     """Pad the node axis to the banded plan's length, stage the DA inputs
@@ -719,7 +769,7 @@ def _drive_padded(driver, net, chan, res_params, cfg, q0, depth0, res_elev0,
     n_obs_t = da.obs.shape[0] if have_da else 0
     nan_obs = (torch.full((da.obs.shape[1],), float("nan"), dtype=dtype,
                           device=device) if have_da else empty)
-    # month per step, read on the host once instead of once per step
+    # month per step, read once a call from the host tensor
     month_host = (res_da.month_idx.cpu().numpy() if res_da is not None
                   else None)
     if month_host is not None and not month_clip \

@@ -27,10 +27,16 @@ Spans: ``bmi.update_until`` (with ``bmi.ingest`` before the engine and
 ``bmi.publish`` after it), ``engine.route`` (padding, staging and the
 driver), ``engine.step`` (one short step, with ``engine.upstream_sum``,
 ``engine.mc``, ``engine.reservoirs`` and ``engine.collect`` inside it),
-and ``engine.collect`` again around the final stacks of the result.
-Counter: ``cuda.device_allocs``, the caching allocator's device
+and ``engine.collect`` again around the final stacks of the result.  With
+data assimilation: ``engine.reservoir_da`` (the typed reservoir DA,
+inside ``engine.reservoirs``), ``engine.nudge`` (gage nudging) and
+``engine.da_handoff`` (the DA inputs of the next window), each entered
+only when its DA data is given.
+Counters: ``cuda.device_allocs``, the caching allocator's device
 allocations (``cudaMalloc``) made inside ``engine.route`` on a CUDA
-device.
+device; ``engine.nudge_lanes`` and ``engine.reservoir_da_lanes``, the
+gage lanes nudged and the reservoir lanes the typed DA computes, added
+each step (from shapes: no device read).
 """
 
 from __future__ import annotations
