@@ -165,6 +165,26 @@ Run from the root of a checkout, with no arguments:
    ranks of (d); the references, the timed turns and the single-process
    command are not counted.
 
+13. Kernel L1 against plain, run right after phase 2: the level-pool
+   kernel (``troute_torch/csrc/levelpool.cu``) and the plain
+   ``levelpool_step`` on the card at the main path's shapes (CONUS: 5,441
+   lakes on 2,729,077 node rows, parameters as ``from_array`` lays them
+   out), in f32 and f64, with elevations across every discharge branch:
+   the lane form with and without lateral inflow, and the row form with
+   and without ``into``, bit for bit (``torch.equal``) with the plain
+   step plus ``quc[rows]`` and ``index_put`` on the same inputs, one
+   launch a call; then, f32 row form with ``into`` (the short step's
+   form), the kernel's device time of one call and the plain lake block's
+   (profiler), the interval at which the wrapper enqueues calls back to
+   back (CUDA events), and the bound: the bytes that call must move over
+   the HBM rate.  Every other phase that routes on the card counts L1's
+   launches from zero before each run and checks them after it: one a
+   short step with lakes (phases 3, 8, 11 and the lakeless CONUS windows
+   of phases 4 and 12 with none), one a sweep in the strict Jacobi sweeps
+   (phases 6 and 8: B1's and B2's launches together), the same number in
+   each step of the level scan (phase 9).  The ranks that phase 12
+   spawns are not counted.
+
 ``--phases LIST`` (e.g. ``9,10`` or ``2-8``) runs only those phases after
 phase 1 and then prints no result lines; the default runs them all.
 ``--engine-segments N`` runs phase 3 on N segments instead of 100,000
@@ -217,6 +237,8 @@ NAMES = ("qup", "quc", "qdp", "ql", "dx", "bw", "tw", "twcc", "n", "ncc",
          "cs", "s0", "depthp")
 DT = 300.0
 N_CONUS = 2_729_077
+# the level-pool lakes of the benchmark's CONUS network
+N_CONUS_LAKES = 5_441
 # phase 9's regional network: 100 basins of 1,000 segments
 N_REGION, N_BASINS = 100_000, 100
 
@@ -777,6 +799,178 @@ def phase_kernel_vs_plain(device, dev: dict, n32: int, n64: int,
     return res
 
 
+# kernel L1's launches checked by each phase, by phase
+L1_BY_PATH: dict[int, int] = {}
+
+
+def l1_reset() -> None:
+    from troute_torch.ops import levelpool_cuda
+    levelpool_cuda.LAUNCHES = 0
+
+
+def l1_read(want, what: str, phase: int) -> int:
+    """Kernel L1's launches since ``l1_reset``, added to ``phase``'s count;
+    they must equal ``want`` (None: any number)."""
+    from troute_torch.ops import levelpool_cuda
+    got = levelpool_cuda.LAUNCHES
+    if want is not None and got != want:
+        raise AssertionError(f"{what}: kernel L1 launched {got} times, "
+                             f"expected {want}")
+    L1_BY_PATH[phase] = L1_BY_PATH.get(phase, 0) + got
+    return got
+
+
+def _lake_inputs(device, dtype, n_res: int, n_nodes: int, seed: int):
+    """``n_res`` lakes on distinct rows of ``n_nodes``: parameters from
+    ``tests/test_torch_cuda.py``'s ranges as ``from_array`` lays them out
+    (column views of one [n, 9] array), a fifth of the lakes with no area,
+    and elevations from below the orifice to over the top, so that every
+    branch of the discharge is taken; inflows to 500 m3/s."""
+    import torch
+    from troute_torch.ops.levelpool import LevelpoolParams
+    rng = np.random.default_rng(seed)
+    ranges = ((0.5, 20.0), (9.0, 11.0), (0.5, 2.0), (0.05, 0.2), (6.0, 8.0),
+              (0.3, 0.5), (8.5, 9.5), (5.0, 20.0), (0.0, 1.0))
+    wb = np.stack([rng.uniform(lo, hi, n_res) for lo, hi in ranges], axis=1)
+    wb[:, 1] = np.maximum(wb[:, 1], wb[:, 6] + 0.2)
+    wb[::5, 0] = 0.0
+    h = rng.uniform(wb[:, 4] - 1.0, wb[:, 1] + 1.0)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    rows = torch.as_tensor(np.sort(rng.choice(n_nodes, n_res,
+                                              replace=False)), device=device)
+    return dict(p=LevelpoolParams.from_array(wb, device=device, dtype=dtype),
+                H=t(h), qi0=t(rng.uniform(0, 500, n_res)),
+                qi1=t(rng.uniform(0, 500, n_res)),
+                ql=t(rng.uniform(0, 5, n_res)), rows=rows,
+                quc=t(rng.uniform(0, 500, n_nodes)),
+                q=t(rng.uniform(0, 500, n_nodes)),
+                d=t(rng.uniform(0, 10, n_nodes)))
+
+
+def phase_levelpool(device, dev: dict, n_res: int, n_nodes: int) -> dict:
+    """Phase 13: kernel L1 against the plain level pool on the card (the
+    module docstring)."""
+    import torch
+    from troute_torch.ops import levelpool_cuda
+    from troute_torch.ops.levelpool import levelpool_step
+    smi = dev["smi"]
+    max_abs = 0.0
+    l1_reset()
+    for dtype in (torch.float32, torch.float64):
+        x = _lake_inputs(device, dtype, n_res, n_nodes, seed=13)
+        p, H, rows, quc = x["p"], x["H"], x["rows"], x["quc"]
+        zeros = torch.zeros_like(H)
+        inflow = quc[rows]
+        want = {"lanes": levelpool_step(H, x["qi0"], x["qi1"], x["ql"], DT, p),
+                "lanes, ql None": levelpool_step(H, x["qi0"], x["qi1"],
+                                                 zeros, DT, p),
+                "rows": levelpool_step(H, inflow, inflow, zeros, DT, p)}
+        want["rows"] += (inflow,)
+        out, h_new = want["rows"][:2]
+        q_in, d_in = x["q"].clone(), x["d"].clone()
+        got = {"lanes": levelpool_cuda.levelpool_step_cuda(
+                   H, x["qi0"], x["qi1"], x["ql"], DT, p),
+               "lanes, ql None": levelpool_cuda.levelpool_step_cuda(
+                   H, x["qi0"], x["qi1"], None, DT, p),
+               "rows": levelpool_cuda.levelpool_rows_cuda(H, quc, rows, DT,
+                                                           p)}
+        h_into = levelpool_cuda.levelpool_rows_cuda(H, quc, rows, DT, p,
+                                                    into=(q_in, d_in))
+        got["rows, into"] = (h_into, q_in, d_in)
+        want["rows, into"] = (h_new, x["q"].index_put((rows,), out),
+                              x["d"].index_put((rows,), h_new))
+        torch.cuda.synchronize()
+        for form, gs in got.items():
+            for k, (g, w) in enumerate(zip(gs, want[form])):
+                if g.dtype != dtype or g.shape != w.shape:
+                    raise AssertionError(f"phase 13: L1 {form} {dtype} "
+                                         f"output {k}: {g.dtype} "
+                                         f"{tuple(g.shape)}")
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"phase 13: L1 {form} {dtype} "
+                                         f"output {k} not finite")
+                max_abs = max(max_abs, float((g - w).abs().max()))
+                if not torch.equal(g, w):
+                    raise AssertionError(f"phase 13: L1 {form} {dtype} "
+                                         f"output {k} differs from the "
+                                         f"plain level pool, max abs "
+                                         f"{float((g - w).abs().max()):.3g}")
+        branches = {
+            "over the top": int((H > p.max_depth).sum()),
+            "weir": int(((H <= p.max_depth) & (H > p.weir_elev)).sum()),
+            "orifice": int(((H <= p.weir_elev)
+                            & (H > p.orifice_elev)).sum()),
+            "below the orifice": int((H <= p.orifice_elev).sum()),
+            "no area": int((p.area == 0).sum())}
+        log(f"phase 13: L1 vs plain {dtype}, {n_res} lakes on {n_nodes} "
+            f"rows: lane form (ql given, ql None) and row form (without and "
+            f"with into: outflow, elevation, inflow, q[rows], d[rows]) bit "
+            f"for bit; first evaluation's branches {branches}")
+    l1_read(8, "phase 13's checks", 13)
+
+    # the short step's form, f32: device time, enqueue interval, bound
+    x = _lake_inputs(device, torch.float32, n_res, n_nodes, seed=14)
+    p, H, rows, quc, q, d = (x[k] for k in ("p", "H", "rows", "quc", "q",
+                                            "d"))
+
+    def l1():
+        levelpool_cuda.levelpool_rows_cuda(H, quc, rows, DT, p, into=(q, d))
+
+    def plain():
+        inflow = quc[rows]
+        o, h = levelpool_step(H, inflow, inflow, torch.zeros_like(inflow),
+                              DT, p)
+        q.index_put((rows,), o)
+        d.index_put((rows,), h)
+
+    calls = {"l1": 200, "plain": 20}
+    l1_reset()
+    l1()            # packs the parameters
+    plain()
+    torch.cuda.synchronize()
+    prof = {name: profile_window(lambda: [fn() for _ in range(calls[name])],
+                                 host_ops=False)
+            for name, fn in (("l1", l1), ("plain", plain))}
+    enqueue = {"l1": cuda_ms(l1, reps=2000), "plain": cuda_ms(plain, reps=50)}
+    l1_read(1 + calls["l1"] + 2001, "phase 13's timed calls", 13)
+    if prof["l1"]["busy_ms"] is None:
+        ms = plain_ms = None
+        plain_kernels = None
+    else:
+        # by_name: device ms of each kernel over the profiled calls
+        l1_ms = [v for k, v in prof["l1"]["by_name"].items()
+                 if "levelpool" in k]
+        if prof["l1"]["counts"] != {k: calls["l1"] for k in
+                                    prof["l1"]["by_name"]} or len(l1_ms) != 1:
+            raise AssertionError(f"phase 13: the profiled L1 calls traced "
+                                 f"{prof['l1']['counts']}")
+        ms = l1_ms[0] / calls["l1"]
+        plain_ms = sum(prof["plain"]["by_name"].values()) / calls["plain"]
+        plain_kernels = prof["plain"]["launches"] / calls["plain"]
+    # per lake: the row, quc at it, H and the nine parameters read; the
+    # new elevation, q[row] and d[row] written
+    item = H.element_size()
+    n_bytes = n_res * (rows.element_size() + item * (2 + 9) + item * 3)
+    bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    log(f"phase 13: f32 row form with into, {n_res} lakes: L1 "
+        f"{'not measured' if ms is None else f'{ms * 1e3:.2f} us'} of device "
+        f"time a call (profiler, {calls['l1']} calls), the wrapper enqueues "
+        f"one every {enqueue['l1'] * 1e3:.2f} us back to back (CUDA events); "
+        f"the plain block "
+        f"{'not measured' if plain_ms is None else f'{plain_ms * 1e3:.2f} us'}"
+        f" of device time over {plain_kernels} kernels a call, one every "
+        f"{enqueue['plain'] * 1e3:.2f} us back to back; bound "
+        f"{bound_ms * 1e3:.3f} us ({n_bytes / n_res:.0f} B a lake over "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)  [{smi}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                enqueue_ms=enqueue["l1"], plain_enqueue_ms=enqueue["plain"],
+                plain_kernels=plain_kernels, bytes_per_lake=n_bytes / n_res,
+                max_abs=max_abs)
+
+
 def regional_network(n: int, n_basins: int, seed: int):
     """A regional drainage network (``synthetic.regional_network``):
     ``n`` segments in ``n_basins`` basins of equal size, each wired by
@@ -959,9 +1153,11 @@ def phase_engine_card_vs_cpu(device, n: int, nts: int) -> None:
     ref64 = None
     for dtype in (torch.float64, torch.float32):
         before = mcc.LAUNCHES
+        l1_reset()
         t0 = time.perf_counter()
         card = _route(device, dtype, case, nts)
         t_card = time.perf_counter() - t0
+        l1_read(nts, f"phase 3 {dtype}", 3)
         if mcc.LAUNCHES - before != nts:
             raise AssertionError("the card run did not launch the kernel "
                                  "once per step")
@@ -1061,6 +1257,7 @@ def main_path_windows(device, n: int, nts: int, smi: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats(device)
     mcc.LAUNCHES = mcc.SKIP_LAUNCHES = 0
+    l1_reset()
     out, first_s = window(q0, d0, qlats[0])
     cold = [window(q0, d0, qlats[0])[1] for _ in range(5)]
     q_w, d_w = out["state"].q, out["state"].depth
@@ -1072,6 +1269,8 @@ def main_path_windows(device, n: int, nts: int, smi: str) -> dict:
             warm.append(dt)
     launches, skip_launches = mcc.LAUNCHES, mcc.SKIP_LAUNCHES
     windows = 1 + len(cold) + 13
+    # the synthetic CONUS network of this phase has no lakes
+    l1_read(windows * nts if net.res_rows.shape[0] else 0, "phase 4", 4)
     if launches != windows * nts or skip_launches != 0:
         raise AssertionError(f"{launches} B1 and {skip_launches} B2 launches "
                              f"for {windows} short-mode windows of {nts} "
@@ -1418,10 +1617,14 @@ def phase_strict_card_vs_cpu(device, n: int, nts: int) -> None:
         start = _state_dict(_warm_state(device, dtype, case))
         strict = dict(nts=nts, qts=3, strict=True, start=start)
         mcc.LAUNCHES = mcc.SKIP_LAUNCHES = 0
+        l1_reset()
         t0 = time.perf_counter()
         card = _route(device, dtype, case, **strict)
         t_card = time.perf_counter() - t0
         calls = card["strict_mc_calls"]
+        # each Jacobi sweep is one short step: one MC and one L1 launch
+        l1_read(calls["mc_secant"] + calls["mc_secant_skip"],
+                f"phase 6 {dtype}", 6)
         launched = {"mc_secant": mcc.LAUNCHES,
                     "mc_secant_skip": mcc.SKIP_LAUNCHES}
         if launched != calls or not calls["mc_secant_skip"]:
@@ -1769,6 +1972,7 @@ def _cli_run(base: Path, cfg: dict, name: str, *flags) -> dict:
         return run
 
     mcc.LAUNCHES = mcc.SKIP_LAUNCHES = 0
+    l1_reset()
     engine.route_stepped, engine.route = (counted(f) for f in real)
     try:
         res = cli.main_v04(["-f", str(base / name), *flags])
@@ -1778,6 +1982,14 @@ def _cli_run(base: Path, cfg: dict, name: str, *flags) -> dict:
                        "mc_secant_skip": mcc.SKIP_LAUNCHES}
     res["strict_mc_calls"] = calls
     return res
+
+
+def _cli_l1(res: dict, case: dict, what: str, phase: int) -> None:
+    """A short or strict (Jacobi) command's L1 launches, read right after
+    ``_cli_run``: one a short step or sweep, as B1 and B2 together, when
+    the domain has lakes."""
+    l1_read(sum(res["launches"].values()) if len(case["lakes"]) else 0,
+            what, phase)
 
 
 def _cli_strict(base: Path, case: dict, nts: int, *flags) -> dict:
@@ -1799,6 +2011,7 @@ def _cli_strict(base: Path, case: dict, nts: int, *flags) -> dict:
     comp["forcing_parameters"].update(nts=nts, max_loop_size=1)
     strict["output_parameters"] = {}
     res = _cli_run(base, strict, "strict.yaml", *flags)
+    _cli_l1(res, case, f"phase 8 strict {flags}", 8)
     n = case["ids"].size
     if res["fvd"].shape != (nts, n, 3) or not np.isfinite(res["fvd"]).all():
         raise AssertionError(f"phase 8 strict {flags}: fvd "
@@ -1896,6 +2109,7 @@ def phase_cli(dev: dict, n_full: int, n_small: int, n_strict: int) -> dict:
             f"{(base / 'domain.gpkg').stat().st_size / 1e6:.0f} MB, 4 NEXOUT "
             f"files) in {case['seconds']:.1f} s; output {kinds}")
         res = _cli_run(base, case["cfg"], "cfg.yaml")
+        _cli_l1(res, case, "phase 8 full size", 8)
         _cli_check_outputs(base, case, res, "phase 8 full size")
         if res["launches"] != {"mc_secant": 48, "mc_secant_skip": 0}:
             raise AssertionError(f"phase 8: launches {res['launches']} for "
@@ -1920,9 +2134,11 @@ def phase_cli(dev: dict, n_full: int, n_small: int, n_strict: int) -> dict:
         base = Path(tmp) / "small"
         case = _cli_domain(base, n_small, kinds)
         card = _cli_run(base, case["cfg"], "cfg.yaml")
+        _cli_l1(card, case, "phase 8 small, card", 8)
         _cli_check_outputs(base, case, card, "phase 8 small, card")
         launches["mc_secant"] += card["launches"]["mc_secant"]
         cpu = _cli_run(base, case["cfg"], "cfg.yaml", "--cpu")
+        _cli_l1(cpu, case, "phase 8 small, --cpu", 8)
         if cpu["launches"] != {"mc_secant": 0, "mc_secant_skip": 0}:
             raise AssertionError("phase 8: --cpu launched a kernel")
         got = np.concatenate([card["fvd"].ravel(),
@@ -1945,6 +2161,7 @@ def phase_cli(dev: dict, n_full: int, n_small: int, n_strict: int) -> dict:
         one["compute_parameters"]["forcing_parameters"]["max_loop_size"] = 4
         one["output_parameters"] = {}
         single = _cli_run(base, one, "one_set.yaml")
+        _cli_l1(single, case, "phase 8 one run set", 8)
         launches["mc_secant"] += single["launches"]["mc_secant"]
         warm = check_f32_bar(card["fvd"].ravel(), single["fvd"].ravel(),
                              "phase 8 two run sets vs one", max_share=1e-5)
@@ -1967,6 +2184,7 @@ def phase_cli(dev: dict, n_full: int, n_small: int, n_strict: int) -> dict:
         base = Path(tmp) / "strict"
         case = _cli_domain(base, n_strict, kinds)
         short = _cli_run(base, case["cfg"], "cfg.yaml")
+        _cli_l1(short, case, "phase 8 strict domain, short", 8)
         _cli_check_outputs(base, case, short, "phase 8 strict domain, short")
         launches["mc_secant"] += short["launches"]["mc_secant"]
         s_card = _cli_strict(base, case, 6)
@@ -2013,9 +2231,15 @@ def phase_level_scan(device, dev: dict, n: int, n_basins: int, nts: int,
         starts[dtype] = _state_dict(_warm_state(device, dtype, case))
         start = starts[dtype]
         mcc.LAUNCHES = 0
+        l1_reset()
         t0 = time.perf_counter()
         card = _route(device, dtype, case, nts, levels=True, start=start)
         t_card = time.perf_counter() - t0
+        # one L1 launch per level row with lakes, the same rows each step
+        l1_scan = l1_read(None, f"phase 9 {dtype}", 9)
+        if l1_scan <= 0 or l1_scan % nts:
+            raise AssertionError(f"phase 9: kernel L1 launched {l1_scan} "
+                                 f"times in {nts} steps")
         rows = int(card["net"].level_nodes.shape[0])
         if not mcc.LAUNCHES == card["mc_calls"] == rows * nts:
             raise AssertionError(f"level scan: {mcc.LAUNCHES} B1 launches, "
@@ -2028,8 +2252,10 @@ def phase_level_scan(device, dev: dict, n: int, n_basins: int, nts: int,
             raise AssertionError("non-finite level-scan output on the card")
         # the first nts_cpu steps, on the card and on the CPU
         mcc.LAUNCHES = 0
+        l1_reset()
         short = _route(device, dtype, case, nts_cpu, levels=True,
                        start=start)
+        l1_read(l1_scan // nts * nts_cpu, f"phase 9 {dtype}, short", 9)
         out["launches"] += mcc.LAUNCHES + rows * nts
         if mcc.LAUNCHES != rows * nts_cpu:
             raise AssertionError("the short level scan launched "
@@ -2520,7 +2746,12 @@ def phase_hybrid(device, dev: dict, n: int, n_basins: int, n_trees: int,
         hp = HybridParameters()
         auto = hp.resolved_diffusive(torch.device(device).type)
         mcc.LAUNCHES = 0
+        l1_reset()
         fvd, t_mc = _hybrid_mc(device, case, nts)
+        l1_hybrid = l1_read(None, "phase 11 hybrid MC", 11)
+        if l1_hybrid not in (0, nts):
+            raise AssertionError(f"phase 11: kernel L1 launched {l1_hybrid} "
+                                 f"times in {nts} short steps")
         if mcc.LAUNCHES != nts:
             raise AssertionError(f"phase 11: MC launched {mcc.LAUNCHES} B1 "
                                  f"kernels for {nts} steps")
@@ -2692,6 +2923,7 @@ def phase_bmi(device, dev: dict, n: int, n_basins: int, n_lakes: int,
     times, host = [], []
     for k in range(1, updates + 1):
         mcc.LAUNCHES = 0
+        l1_reset()
         t0 = time.perf_counter()
         bmi.set_value("land_surface_water_source__volume_flow_rate", qlat)
         t1 = time.perf_counter()
@@ -2704,6 +2936,7 @@ def phase_bmi(device, dev: dict, n: int, n_basins: int, n_lakes: int,
             raise AssertionError(f"phase 11: a short update launched "
                                  f"{mcc.LAUNCHES} B1 kernels for {steps} "
                                  "steps")
+        l1_read(steps, f"phase 11: BMI update {k}", 11)
         out["launches"] += mcc.LAUNCHES
         times.append(t3 - t0)
         host.append((t1 - t0) + (t3 - t2))
@@ -2717,9 +2950,12 @@ def phase_bmi(device, dev: dict, n: int, n_basins: int, n_lakes: int,
     cfg = engine.RoutingConfig(dt=DT, nts=updates * steps,
                                qts_subdivisions=1, assume_short_ts=True)
     mcc.LAUNCHES = 0
+    l1_reset()
     r = engine.route_stepped(ref._net, ref._chan, ref._lp, cfg, ref._q,
                              ref._d, ref._elev,
                              torch.as_tensor(ql, device=device))
+    l1_read(updates * steps, "phase 11: the BMI's route_stepped reference",
+            11)
     out["launches"] += mcc.LAUNCHES
     want = _engine_values(ref, r["flowveldepth"][-1].cpu().numpy())
     if not np.array_equal(got.astype(np.float32), want):
@@ -2887,6 +3123,7 @@ def _conus_world_1(device, dev: dict, n: int, nts: int) -> dict:
                    rank=0, world_size=1)
         try:
             mcc.LAUNCHES = 0
+            l1_reset()
             t0 = time.perf_counter()
             got = route_sharded_global(None, topo, chan, None, cfg, q0, d0,
                                        np.zeros(0, np.float32), qlat,
@@ -2898,6 +3135,9 @@ def _conus_world_1(device, dev: dict, n: int, nts: int) -> dict:
                     f"phase 12: world size 1 launched {mcc.LAUNCHES} B1 "
                     f"kernels, the driver counted {got['mc_calls']}, for "
                     f"{nts} steps")
+            # phase 4's CONUS network has no lakes
+            l1_read(nts if topo.reservoir_rows.size else 0,
+                    "phase 12 world size 1", 12)
             out["launches"] += mcc.LAUNCHES
             ref = engine.route_stepped(*args)
             for k, g, w in (("flowveldepth", got["flowveldepth"],
@@ -3240,7 +3480,7 @@ def main() -> int:
                     help="segments of phase 3's network (the default is "
                          "the checked size; another lists the f32 values "
                          "past 5e-2 of that size)")
-    ap.add_argument("--phases", default="2-12",
+    ap.add_argument("--phases", default="2-13",
                     help="phases to run after phase 1, as a range or a "
                          "comma list (e.g. 9,10); the default runs all, "
                          "and only a full run prints the result lines")
@@ -3257,7 +3497,7 @@ def main() -> int:
     for part in opts.phases.split(","):
         lo, _, hi = part.partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    full = phases >= set(range(2, 13)) and opts.engine_segments == 100_000
+    full = phases >= set(range(2, 14)) and opts.engine_segments == 100_000
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     device = "cuda:0"
     torch.cuda.set_device(device)
@@ -3268,6 +3508,8 @@ def main() -> int:
     if 2 in phases:
         r = phase_kernel_vs_plain(device, dev, n32=N_CONUS, n64=1_000_000,
                                   baseline=baseline)
+    if 13 in phases:
+        lp = phase_levelpool(device, dev, n_res=N_CONUS_LAKES, n_nodes=N_CONUS)
     if 3 in phases:
         phase_engine_card_vs_cpu(device, n=opts.engine_segments, nts=24)
     if phases & {4, 7}:
@@ -3347,7 +3589,19 @@ def main() -> int:
          "library_ms": None, "floor_ms": s["floor_ms"],
          "baseline_ms": s["baseline_ms"],
          "b1_ms_same_inputs": s["b1_ms"],
-         "active_blocks": s["active_blocks"]}],
+         "active_blocks": s["active_blocks"]},
+        {"name": "levelpool", "route": "cuda",
+         "source": "troute_torch/csrc/levelpool.cu",
+         "replaces": "troute_torch/ops/levelpool.py:levelpool_step (no "
+                     "pallas_call: the JAX package's level pool is XLA's)",
+         "launches": sum(L1_BY_PATH.values()),
+         "launches_by_path": {f"phase {k}": v
+                              for k, v in sorted(L1_BY_PATH.items())},
+         "max_abs_err": lp["max_abs"],
+         **{k: lp[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "enqueue_ms", "plain_enqueue_ms",
+                               "plain_kernels", "bytes_per_lake")},
+         "library_ms": None}],
         "cli": {k: c[k] for k in ("task_times", "route_seg_ts_s",
                                   "command_seg_ts_s", "stages")},
         "diffusive": d,

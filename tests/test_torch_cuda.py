@@ -1,5 +1,7 @@
 """Tests of the port that need the card: kernels B1 and B2 against their
-plain versions on the GPU, the wrapper's launch accounting and checks, the
+plain versions on the GPU, the level-pool kernel L1 in both forms against
+the plain ``levelpool_step`` on the GPU bit for bit (f32 and f64), the
+wrappers' launch accounting and checks, the
 engine (short and strict modes, ``route()``'s level scan), the diffusive
 solver (four configurations, a batch), the hybrid mainstem run and the
 BMI's updates on the card against the CPU.
@@ -529,3 +531,278 @@ def test_route_sharded_global_nccl_world_1_equals_route_stepped(
     for f in ("q", "depth", "res_elev", "lastobs_val", "lastobs_time"):
         assert torch.equal(getattr(got["state"], f),
                            getattr(want["state"], f)), f
+
+
+# LevelpoolParams' columns (area, max_depth, orifice_area, orifice_coeff,
+# orifice_elev, weir_coeff, weir_elev, weir_length, ifd) drawn as in
+# test_torch_ops.py's branch test
+_LP_RANGES = ((0.5, 20.0), (9.0, 11.0), (0.5, 2.0), (0.05, 0.2), (6.0, 8.0),
+              (0.3, 0.5), (8.5, 9.5), (5.0, 20.0), (0.0, 1.0))
+_LP_BRANCHES = ("overtop", "weir_orifice", "orifice", "below_orifice",
+                "no_area", "edges")
+
+
+def _lp_lanes(dtype, device, per_branch=2000, seed=11):
+    """Lakes whose elevations put the first discharge evaluation on each
+    branch of ``_discharge`` (over the top, weir and orifice, orifice
+    only, below the orifice), lakes of zero area, and lakes that sit
+    exactly on the three thresholds; the parameters as column views of
+    one [n, 9] array, as ``from_array`` makes them.  Returns (H, qi0,
+    qi1, ql, params, branch of each lake)."""
+    rng = np.random.default_rng(seed)
+    wb, h, branch = [], [], []
+    for b in _LP_BRANCHES:
+        w = np.stack([rng.uniform(lo, hi, per_branch)
+                      for lo, hi in _LP_RANGES], axis=1)
+        # the weir crest below the top of storage
+        w[:, 1] = np.maximum(w[:, 1], w[:, 6] + 0.2)
+        md, oe, we = w[:, 1], w[:, 4], w[:, 6]
+        between = rng.uniform(0.05, 0.95, per_branch)
+        if b == "overtop":
+            x = md + rng.uniform(0.01, 1.0, per_branch)
+        elif b == "weir_orifice":
+            x = we + (md - we) * between
+        elif b == "orifice":
+            x = oe + (we - oe) * between
+        elif b == "below_orifice":
+            x = oe - rng.uniform(0.01, 2.0, per_branch)
+        elif b == "no_area":
+            w[:, 0] = 0.0
+            x = rng.uniform(5.0, 12.0, per_branch)
+        else:
+            x = np.choose(np.arange(per_branch) % 3, [md, we, oe])
+        wb.append(w)
+        h.append(x)
+        branch += [b] * per_branch
+    wb, h = np.concatenate(wb), np.concatenate(h)
+    n = h.size
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return (t(h), t(rng.uniform(0, 500, n)), t(rng.uniform(0, 500, n)),
+            t(rng.uniform(0, 5, n)),
+            LevelpoolParams.from_array(wb, device=device, dtype=dtype),
+            np.asarray(branch))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_levelpool_lane_form_bits_match_plain_on_card(cuda, dtype):
+    """Kernel L1's lane form against the plain ``levelpool_step`` run on
+    the same card, bit for bit, on every branch of the discharge: with
+    lateral inflow, without (``ql`` None reads zeros), and with the
+    parameters as separate contiguous tensors; one launch a call."""
+    from troute_torch.ops import levelpool_cuda
+    from troute_torch.ops.levelpool import levelpool_step
+    H, qi0, qi1, ql, p, branch = _lp_lanes(dtype, cuda)
+    assert p.area.stride(0) == 9
+    before = levelpool_cuda.LAUNCHES
+    got = levelpool_cuda.levelpool_step_cuda(H, qi0, qi1, ql, DT, p)
+    got0 = levelpool_cuda.levelpool_step_cuda(H, qi0, qi1, None, DT, p)
+    flat = LevelpoolParams(*[c.contiguous() for c in p])
+    got_c = levelpool_cuda.levelpool_step_cuda(H, qi0, qi1, ql, DT, flat)
+    want = levelpool_step(H, qi0, qi1, ql, DT, p)
+    want0 = levelpool_step(H, qi0, qi1, torch.zeros_like(ql), DT, p)
+    torch.cuda.synchronize()
+    assert levelpool_cuda.LAUNCHES == before + 3
+    for g, g0, gc, w, w0 in zip(got, got0, got_c, want, want0):
+        assert g.dtype == dtype and g.device == H.device
+        assert torch.equal(g, w) and torch.equal(gc, w)
+        assert torch.equal(g0, w0)
+    out, h_new = (a.cpu().numpy() for a in got)
+    assert np.isfinite(out).all() and np.isfinite(h_new).all()
+    for b in ("overtop", "weir_orifice", "orifice"):
+        assert (out[branch == b] > 0).all(), b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scatter", [True, False])
+def test_levelpool_row_form_bits_match_plain_on_card(cuda, dtype, scatter):
+    """Kernel L1's row form (the short step's gather, level pool and, with
+    ``into``, its two scatters) against ``quc[rows]``, the plain
+    ``levelpool_step`` with zero lateral inflow and ``index_put`` on the
+    same card, bit for bit (with ``into`` it returns the new elevation
+    alone); rows in a scattered order; one launch."""
+    from troute_torch.ops import levelpool_cuda
+    from troute_torch.ops.levelpool import levelpool_step
+    H, _, _, _, p, _ = _lp_lanes(dtype, cuda)
+    n = H.shape[0]
+    rng = np.random.default_rng(12)
+    n_nodes = 3 * n
+    rows = torch.as_tensor(rng.choice(n_nodes, n, replace=False),
+                           device=cuda)
+    quc, q, d = (torch.as_tensor(rng.uniform(0, 500, n_nodes), dtype=dtype,
+                                 device=cuda) for _ in range(3))
+    q_in, d_in = q.clone(), d.clone()
+    before = levelpool_cuda.LAUNCHES
+    got = levelpool_cuda.levelpool_rows_cuda(
+        H, quc, rows, DT, p, into=(q_in, d_in) if scatter else None)
+    inflow = quc[rows]
+    out, h_new = levelpool_step(H, inflow, inflow, torch.zeros_like(inflow),
+                                DT, p)
+    torch.cuda.synchronize()
+    assert levelpool_cuda.LAUNCHES == before + 1
+    if scatter:
+        assert torch.equal(got, h_new)
+        assert torch.equal(q_in, q.index_put((rows,), out))
+        assert torch.equal(d_in, d.index_put((rows,), h_new))
+    else:
+        for g, w in zip(got, (out, h_new, inflow)):
+            assert torch.equal(g, w)
+        assert torch.equal(q_in, q) and torch.equal(d_in, d)
+
+
+def test_levelpool_params_written_in_place_on_card(cuda):
+    """The wrapper packs a parameter set once and keeps it; after a field
+    is written in place the kernel reads the new values, bit for bit with
+    the plain ``levelpool_step`` on the same card."""
+    from troute_torch.ops import levelpool_cuda
+    from troute_torch.ops.levelpool import levelpool_step
+    H, qi0, qi1, ql, p, _ = _lp_lanes(torch.float32, cuda, per_branch=64)
+    first = levelpool_cuda.levelpool_step_cuda(H, qi0, qi1, ql, DT, p)
+    p.weir_elev.sub_(0.5)
+    p.area.mul_(2.0)
+    got = levelpool_cuda.levelpool_step_cuda(H, qi0, qi1, ql, DT, p)
+    want = levelpool_step(H, qi0, qi1, ql, DT, p)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(first[0], got[0])
+
+
+def test_levelpool_zero_lakes_and_checks(cuda):
+    """No lakes: empty outputs and no launch.  The wrapper raises, before
+    any launch, on tensors of mixed devices or dtypes, on a shape that
+    differs, on rows that are not int64 on the lakes' device, and on
+    ``into`` tensors that alias ``quc``."""
+    from troute_torch.ops import levelpool_cuda
+    H, qi0, qi1, ql, p, _ = _lp_lanes(torch.float32, cuda, per_branch=8)
+    rows = torch.arange(H.shape[0], device=cuda)
+    quc = torch.ones(2 * H.shape[0], device=cuda)
+    before = levelpool_cuda.LAUNCHES
+    e = H[:0]
+    p0 = LevelpoolParams(*[c[:0] for c in p])
+    out, h_new = levelpool_cuda.levelpool_step_cuda(e, e, e, None, DT, p0)
+    assert out.shape == h_new.shape == (0,)
+    got = levelpool_cuda.levelpool_rows_cuda(
+        e, quc, rows[:0], DT, p0, into=(quc.clone(), quc.clone()))
+    assert got.shape == (0,)
+    got = levelpool_cuda.levelpool_rows_cuda(e, quc, rows[:0], DT, p0)
+    assert all(g.shape == (0,) for g in got) and len(got) == 3
+    bad = [
+        lambda: levelpool_cuda.levelpool_step_cuda(H.cpu(), qi0, qi1, ql,
+                                                   DT, p),
+        lambda: levelpool_cuda.levelpool_step_cuda(H, qi0.double(), qi1, ql,
+                                                   DT, p),
+        lambda: levelpool_cuda.levelpool_step_cuda(H, qi0[1:], qi1, ql, DT,
+                                                   p),
+        lambda: levelpool_cuda.levelpool_step_cuda(
+            H, qi0, qi1, ql, DT, p._replace(area=p.area.cpu())),
+        lambda: levelpool_cuda.levelpool_rows_cuda(H, quc, rows.cpu(), DT, p),
+        lambda: levelpool_cuda.levelpool_rows_cuda(H, quc, rows.int(), DT, p),
+        lambda: levelpool_cuda.levelpool_rows_cuda(H, quc.double(), rows, DT,
+                                                   p),
+        lambda: levelpool_cuda.levelpool_rows_cuda(H, quc, rows, DT, p,
+                                                   into=(quc, quc.clone())),
+    ]
+    for call in bad:
+        with pytest.raises((ValueError, TypeError)):
+            call()
+    torch.cuda.synchronize()
+    assert levelpool_cuda.LAUNCHES == before
+
+
+def _lake_route_case(n, n_res, seed):
+    """A CONUS-like network (``synthetic_conus``) with ``n_res`` lakes on
+    segments that have an upstream, and its channel, lake and forcing
+    arrays."""
+    ids, down = bench.synthetic_conus(n=n, n_basins=50)
+    rng = np.random.default_rng(seed)
+    nt = np.zeros(n, np.int8)
+    nt[rng.choice(np.flatnonzero(np.isin(ids, down)), n_res,
+                  replace=False)] = 1
+    topo = build_topology_postorder(ids, down, node_type=nt)
+    wb = np.stack([rng.uniform(lo, hi, n_res) for lo, hi in _LP_RANGES],
+                  axis=1)
+    elev0 = rng.uniform(wb[:, 4] - 0.5, wb[:, 1] + 0.2)
+    q0, d0 = rng.uniform(0.5, 5.0, n), rng.uniform(0.05, 0.8, n)
+    d0[topo.reservoir_rows] = elev0
+    return (topo, bench.channel_params(n, rng), wb, q0, d0, elev0,
+            rng.uniform(0.1, 2.0, (3, n)))
+
+
+def _lake_route(case, dtype, device, nts, with_da):
+    """``route_stepped`` on ``case``: short steps; with ``with_da`` a third
+    of the lakes USGS persistence lakes with 15-min observations, the rest
+    level pool, through the typed reservoir DA."""
+    topo, chan, wb, q0, d0, elev0, qlat = case
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    n_res = wb.shape[0]
+    res_da = None
+    if with_da:
+        rng = np.random.default_rng(5)
+        kind = np.where(np.arange(n_res) % 3 == 0, 2, 1)
+        res_da = engine.ReservoirDAData.inactive(
+            n_res, nts, device=device, dtype=dtype)._replace(
+            wbody_type=torch.as_tensor(kind, dtype=torch.int32,
+                                       device=device),
+            hybrid_obs=t(rng.uniform(1.0, 30.0, (n_res, 8))),
+            hybrid_obs_time=t(np.arange(8) * 900.0 - 3600.0))
+    cfg = engine.RoutingConfig(dt=DT, nts=nts, qts_subdivisions=6,
+                               assume_short_ts=True)
+    return engine.route_stepped(
+        engine.network_arrays_from_topology(topo, device=device),
+        engine.ChannelParams.from_arrays(device=device, dtype=dtype, **chan),
+        LevelpoolParams.from_array(wb, device=device, dtype=dtype), cfg,
+        t(q0), t(d0), t(elev0), t(qlat), None, res_da)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_da", [False, True])
+def test_route_with_lakes_on_card_equals_the_plain_level_pool(
+        cuda, dtype, with_da, monkeypatch):
+    """12 short steps of a 20,000-segment CONUS-like network with 200 lakes
+    on the card, with the level-pool kernel and with the engine's lake
+    block as it was before the kernel (``quc[res_rows]``, the plain
+    ``levelpool_step`` with zero lateral inflow, out-of-place
+    ``index_put`` of the outflow and depth): the same arrays, bit for bit.
+    One launch of the kernel a step, counted by the wrapper and, under a
+    profiler, by ``engine.levelpool_launches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from troute_torch import tracing
+    from troute_torch.ops import levelpool_cuda
+    from troute_torch.ops.levelpool import levelpool_step
+    nts = 12
+    case = _lake_route_case(20_000, 200, seed=21)
+    tracing.drain()
+    before = levelpool_cuda.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = _lake_route(case, dtype, cuda, nts, with_da)
+        torch.cuda.synchronize()
+    assert levelpool_cuda.LAUNCHES - before == nts
+    assert tracing.drain()[1]["engine.levelpool_launches"] == nts
+
+    def plain_rows(H, quc, rows, dt, p, into=None):
+        inflow = quc[rows]
+        out, h_new = levelpool_step(H, inflow, inflow,
+                                    torch.zeros_like(inflow), dt, p)
+        if into is None:
+            return out, h_new, inflow
+        for a, v in zip(into, (out, h_new)):
+            a.copy_(a.index_put((rows,), v))
+        return h_new
+
+    monkeypatch.setattr(engine, "levelpool_rows_cuda", plain_rows)
+    want = _lake_route(case, dtype, cuda, nts, with_da)
+    torch.cuda.synchronize()
+    assert levelpool_cuda.LAUNCHES - before == nts
+    assert torch.equal(got["flowveldepth"], want["flowveldepth"])
+    for f in ("q", "depth", "res_elev"):
+        assert torch.equal(getattr(got["state"], f),
+                           getattr(want["state"], f)), f
+    if with_da:
+        for a, b in zip(got["state"].hybrid, want["state"].hybrid):
+            assert torch.equal(a.nan_to_num(-1.0), b.nan_to_num(-1.0))

@@ -271,6 +271,84 @@ def test_reservoir_da_inactive_matches_jax(dtype):
             np.testing.assert_array_equal(a, b, err_msg=f)
 
 
+@pytest.mark.parametrize("with_da", [False, True])
+def test_one_short_step_lakes_unchanged_on_cpu(with_da):
+    """The short step's lake block on the CPU, which the row form of the
+    level-pool wrapper now computes: the same arrays, bit for bit, as the
+    block computed before, which gathered ``quc[res_rows]``, ran
+    ``_reservoirs`` (the plain level pool and, with ``res_da``, the typed
+    DA) and scattered the outflow and depth out of place into the MC
+    result; no kernel launch."""
+    from troute_torch.network.topology import build_topology_postorder
+    from troute_torch.ops import levelpool_cuda
+    from troute_torch.ops.levelpool import LevelpoolParams
+    n, n_res, f32 = 3000, 24, torch.float32
+    ids, down = bench.synthetic_conus(n=n, n_basins=20)
+    rng = np.random.default_rng(8)
+    nt = np.zeros(n, np.int8)
+    nt[rng.choice(np.flatnonzero(np.isin(ids, down)), n_res,
+                  replace=False)] = 1
+    net = teng.network_arrays_from_topology(
+        build_topology_postorder(ids, down, node_type=nt), device="cpu")
+    n_pad = net.uplan.n_pad
+    chan = teng.ChannelParams.from_arrays(
+        device="cpu", dtype=f32,
+        **{k: np.resize(v, n_pad)
+           for k, v in bench.channel_params(n, rng).items()})
+    up = torch.cat([net.upstream, net.upstream.new_full(
+        (n_pad - n, net.upstream.shape[1]), -1)])
+    is_res = torch.cat([net.is_reservoir,
+                        torch.zeros(n_pad - n, dtype=torch.bool)])
+    wb = np.stack([rng.uniform(1.0, 3.0, n_res), rng.uniform(11.0, 12.5, n_res),
+                   *[np.full(n_res, v) for v in (1.2, 0.1, 8.0, 0.4, 11.0,
+                                                 12.0)],
+                   np.full(n_res, 0.9)], axis=1)
+    lp = LevelpoolParams.from_array(wb, device="cpu", dtype=f32)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f32)
+
+    q, depth, ql = (t(rng.uniform(lo, hi, n_pad)) for lo, hi in (
+        (0.5, 5.0), (0.05, 0.8), (0.1, 2.0)))
+    res_elev = t(rng.uniform(7.5, 12.5, n_res))
+    res_da, states, month_i = None, None, None
+    if with_da:
+        res_da = teng.ReservoirDAData.inactive(
+            n_res, 2, device="cpu", dtype=f32)._replace(
+            wbody_type=torch.as_tensor(np.where(np.arange(n_res) % 3, 1, 2),
+                                       dtype=torch.int32),
+            hybrid_obs=t(rng.uniform(1.0, 30.0, (n_res, 8))),
+            hybrid_obs_time=t(np.arange(8) * 900.0 - 3600.0))
+        states = (res_da.hybrid_state0, res_da.rfc_state0,
+                  res_da.gl_state0)
+        month_i = 0
+    empty = torch.zeros(0, dtype=f32)
+    no_gages = torch.zeros(0, dtype=torch.int64)
+    before = levelpool_cuda.LAUNCHES
+    got = teng._one_short_step(
+        q, depth, res_elev, empty, empty, ql, empty, DT, up, chan, lp,
+        is_res, net.res_rows, no_gages, 120.0, DT, res_da=res_da,
+        da_states=states, month_i=month_i, uplan=net.uplan, want_raw=True)
+    assert levelpool_cuda.LAUNCHES == before
+    raw = got[-1]
+    quc = teng._upstream_sum_stepped(q, up, net.uplan)
+    outflow, elev, d_scat, want_states = teng._reservoirs(
+        lp, res_da, res_elev, quc[net.res_rows], states, DT, month_i, DT)
+    want_q = torch.where(is_res, q, raw.qdc).index_put((net.res_rows,),
+                                                       outflow)
+    want_d = torch.where(is_res, depth, raw.depthc).index_put(
+        (net.res_rows,), d_scat)
+    assert torch.equal(got[0], want_q) and torch.equal(got[2], want_d)
+    assert torch.equal(got[3], elev)
+    assert torch.equal(got[1], torch.where(is_res, 0.0, raw.velc))
+    if with_da:
+        assert not torch.equal(outflow, teng._reservoirs(
+            lp, None, res_elev, quc[net.res_rows], None, DT, None, DT)[0])
+        for g, w in zip(got[7], want_states):
+            for a, b in zip(g, w):
+                assert torch.equal(a.nan_to_num(-1.0), b.nan_to_num(-1.0))
+
+
 def test_strict_mode_not_ported():
     """The level-scan strict form is ``route()``'s
     (``tests/test_torch_route.py``): ``route_stepped`` refuses it and

@@ -108,6 +108,116 @@ def test_levelpool_branches_vs_jax():
     np.testing.assert_allclose(H_t.numpy(), np.asarray(H_j), rtol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_levelpool_wrapper_is_the_plain_version_on_cpu(dtype):
+    """``ops/levelpool_cuda.py`` on CPU tensors: the lane form is the plain
+    ``levelpool_step`` (``ql`` None as zeros), the row form the gather,
+    the plain step with zero lateral inflow and ``index_put`` into
+    ``into`` (then returning the new elevation alone), bit for bit; no
+    launch is counted, by the wrapper or, under a profiler, by
+    ``engine.levelpool_launches``.  The wrapper's checks raise on CPU
+    tensors too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from troute_torch import tracing
+    from troute_torch.ops import levelpool_cuda as lpc
+    rng = np.random.default_rng(31)
+    n, n_nodes = 96, 400
+    wb = np.stack([rng.uniform(0.5, 20.0, n), rng.uniform(9.0, 11.0, n),
+                   rng.uniform(0.5, 2.0, n), rng.uniform(0.05, 0.2, n),
+                   rng.uniform(6.0, 8.0, n), rng.uniform(0.3, 0.5, n),
+                   rng.uniform(8.5, 9.5, n), rng.uniform(5.0, 20.0, n),
+                   rng.uniform(0.0, 1.0, n)], axis=1)
+    wb[::7, 0] = 0.0
+    p = tlp.LevelpoolParams.from_array(wb, device="cpu", dtype=dtype)
+    H, qi0, qi1, ql = (_t(a, dtype) for a in (
+        rng.uniform(5.0, 12.0, n), rng.uniform(0, 500, n),
+        rng.uniform(0, 500, n), rng.uniform(0, 5, n)))
+    rows = torch.as_tensor(rng.choice(n_nodes, n, replace=False))
+    quc, q, d = (_t(rng.uniform(0, 500, n_nodes), dtype) for _ in range(3))
+    q_in, d_in = q.clone(), d.clone()
+    tracing.drain()
+    before = lpc.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU]):
+        lanes = lpc.levelpool_step_cuda(H, qi0, qi1, ql, DT, p)
+        lanes0 = lpc.levelpool_step_cuda(H, qi0, qi1, None, DT, p)
+        by_rows = lpc.levelpool_rows_cuda(H, quc, rows, DT, p)
+        h_into = lpc.levelpool_rows_cuda(H, quc, rows, DT, p,
+                                         into=(q_in, d_in))
+    assert lpc.LAUNCHES == before
+    assert "engine.levelpool_launches" not in tracing.drain()[1]
+    for g, w in zip(lanes, tlp.levelpool_step(H, qi0, qi1, ql, DT, p)):
+        assert torch.equal(g, w)
+    for g, w in zip(lanes0, tlp.levelpool_step(H, qi0, qi1,
+                                                torch.zeros_like(ql), DT, p)):
+        assert torch.equal(g, w)
+    inflow = quc[rows]
+    out, h_new = tlp.levelpool_step(H, inflow, inflow,
+                                    torch.zeros_like(inflow), DT, p)
+    assert len(by_rows) == 3
+    for g, w in zip(by_rows, (out, h_new, inflow)):
+        assert torch.equal(g, w)
+    assert torch.equal(h_into, h_new)
+    assert torch.equal(q_in, q.index_put((rows,), out))
+    assert torch.equal(d_in, d.index_put((rows,), h_new))
+    other = torch.float32 if dtype == F64 else F64
+    bad = [
+        lambda: lpc.levelpool_step_cuda(H, qi0.to(other), qi1, ql, DT, p),
+        lambda: lpc.levelpool_step_cuda(H, qi0[1:], qi1, ql, DT, p),
+        lambda: lpc.levelpool_step_cuda(H, qi0.to("meta"), qi1, ql, DT, p),
+        lambda: lpc.levelpool_step_cuda(
+            _t(np.zeros((n, 2)), dtype)[:, 0], qi0, qi1, ql, DT, p),
+        lambda: lpc.levelpool_step_cuda(H.half(), qi0.half(), qi1.half(),
+                                        None, DT, p),
+        lambda: lpc.levelpool_rows_cuda(H, quc, rows.int(), DT, p),
+        lambda: lpc.levelpool_rows_cuda(H, quc, rows[1:], DT, p),
+        lambda: lpc.levelpool_rows_cuda(H, quc.to(other), rows, DT, p),
+        lambda: lpc.levelpool_rows_cuda(H, quc, rows, DT, p,
+                                        into=(q_in, q_in[:-1])),
+        lambda: lpc.levelpool_rows_cuda(H, quc, rows, DT, p,
+                                        into=(quc, d_in)),
+    ]
+    for call in bad:
+        with pytest.raises((ValueError, TypeError)):
+            call()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_levelpool_params_packed_once_per_set(dtype):
+    """The kernel's [n, 9] parameter matrix: packed in
+    ``LevelpoolParams``' field order, from column views or separate
+    tensors, kept and handed back for the same parameter set, packed anew
+    after a field is written in place or for another set, and checked
+    against the lakes when packed."""
+    from troute_torch.ops import levelpool_cuda as lpc
+    rng = np.random.default_rng(32)
+    n = 40
+    wb = rng.uniform(0.1, 10.0, (n, 9))
+    p = tlp.LevelpoolParams.from_array(wb, device="cpu", dtype=dtype)
+    H = _t(rng.uniform(5.0, 12.0, n), dtype)
+    packed = lpc._packed(p, H)
+    assert packed.shape == (n, 9) and packed.is_contiguous()
+    for k, c in enumerate(p):
+        assert torch.equal(packed[:, k], c)
+    assert lpc._packed(p, H) is packed
+    flat = tlp.LevelpoolParams(*[c.contiguous() for c in p])
+    assert torch.equal(lpc._packed(flat, H), packed)
+    p.weir_elev.add_(1.0)
+    again = lpc._packed(p, H)
+    assert again is not packed
+    assert torch.equal(again[:, 6], p.weir_elev)
+    assert lpc._packed(p, H) is again
+    other = torch.float32 if dtype == F64 else F64
+    for bad_h in (H[1:], H.to(other)):
+        with pytest.raises(ValueError):
+            lpc._packed(p, bad_h)
+    with pytest.raises(ValueError):
+        lpc._packed(p._replace(area=p.area[1:]), H)
+    for _ in range(lpc._PACKED_KEEP + 1):
+        lpc._packed(tlp.LevelpoolParams(*[c.clone() for c in p]), H)
+    assert len(lpc._PACKED) <= lpc._PACKED_KEEP
+
+
 def _hybrid_obs(rng, n_lanes, n_obs):
     obs = rng.uniform(5, 50, (n_lanes, n_obs))
     obs[0, 10:18] = np.nan          # data gap

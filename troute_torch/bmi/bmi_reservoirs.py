@@ -1,7 +1,8 @@
 """Standalone single-reservoir BMI.
 
 Port of ``troute_tpu/bmi/bmi_reservoirs.py`` on the port's
-``ops/levelpool.py`` and ``ops/reservoir_da.py``, in float64 on the
+``ops/levelpool.py`` (through ``ops/levelpool_cuda.py``: kernel L1 on a
+card) and ``ops/reservoir_da.py``, in float64 on the
 constructor's device (the first CUDA device unless ``device="cpu"`` is
 given; with neither the constructor raises).  Equivalent of the
 reference's auxiliary reservoir BMI (``src/bmi_reservoirs.py`` +
@@ -92,7 +93,7 @@ class BmiReservoir:
         self.update_until(self._time + self._dt)
 
     def update_until(self, until: float) -> None:
-        from troute_torch.ops.levelpool import levelpool_step
+        from troute_torch.ops.levelpool_cuda import levelpool_step_cuda
         from troute_torch.ops.reservoir_da import (
             HybridDAState, RfcDAState, hybrid_persistence_da,
             rfc_forecast_da)
@@ -113,7 +114,7 @@ class BmiReservoir:
             inflow = float(inflow_arr[min(k, inflow_arr.size - 1)]) \
                 if inflow_arr.size else 0.0
             qi = t([inflow])
-            lp_out, lp_elev = levelpool_step(
+            lp_out, lp_elev = levelpool_step_cuda(
                 t([self._elev]), qi, qi, t([0.0]), self._dt, self._params)
 
             if self._res_type in (2, 3):

@@ -41,7 +41,9 @@ import numpy as np
 import torch
 
 from troute_torch.network.topology import NODE_RESERVOIR
-from troute_torch.ops.levelpool import LevelpoolParams, levelpool_step
+from troute_torch.ops.levelpool import LevelpoolParams
+from troute_torch.ops.levelpool_cuda import (levelpool_rows_cuda,
+                                             levelpool_step_cuda)
 from troute_torch.ops.muskingum_cuda import (block_active_lanes,
                                              muskingum_cunge_cuda)
 from troute_torch.ops.reservoir_da import (
@@ -352,8 +354,18 @@ def _reservoirs(res_params: LevelpoolParams, res_da, res_elev, inflow,
     """Level pool, then the typed reservoir DA when ``res_da`` is given
     (``mc_reach.pyx:507-717``), on reservoir lanes that see ``inflow``:
     (outflow, elevation, the depth column's value, DA states)."""
-    lp_out, lp_elev = levelpool_step(res_elev, inflow, inflow,
-                                     torch.zeros_like(inflow), dt, res_params)
+    lp_out, lp_elev = levelpool_step_cuda(res_elev, inflow, inflow, None, dt,
+                                          res_params)
+    return _reservoir_da(res_params, res_da, res_elev, inflow, lp_out,
+                         lp_elev, da_states, t_seconds, month_i, dt)
+
+
+def _reservoir_da(res_params: LevelpoolParams, res_da, res_elev, inflow,
+                  lp_out, lp_elev, da_states, t_seconds: float, month_i,
+                  dt: float):
+    """The typed reservoir DA on the level pool's result (``lp_out``,
+    ``lp_elev``), or that result itself when ``res_da`` is None: (outflow,
+    elevation, the depth column's value, DA states)."""
     if res_da is None:
         return lp_out, lp_elev, lp_elev, da_states
     hyb_s, rfc_s, gl_s = da_states
@@ -411,12 +423,21 @@ def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
 
     if res_rows.shape[0]:
         with span("engine.reservoirs"):
-            outflow, elev, d_scat, da_states = _reservoirs(
-                res_params, res_da, res_elev, quc[res_rows], da_states,
-                t_seconds, month_i, dt)
-            q_new = q_new.index_put((res_rows,), outflow)
-            d_new = d_new.index_put((res_rows,), d_scat)
-        res_elev = elev
+            # one launch on the card: the lakes' inflow gather, the level
+            # pool and, without DA, the scatter into q_new and d_new (fresh
+            # tensors of the torch.where above)
+            if res_da is None:
+                res_elev = levelpool_rows_cuda(res_elev, quc, res_rows, dt,
+                                               res_params,
+                                               into=(q_new, d_new))
+            else:
+                lp_out, lp_elev, inflow = levelpool_rows_cuda(
+                    res_elev, quc, res_rows, dt, res_params)
+                outflow, res_elev, d_scat, da_states = _reservoir_da(
+                    res_params, res_da, res_elev, inflow, lp_out, lp_elev,
+                    da_states, t_seconds, month_i, dt)
+                q_new = q_new.index_put((res_rows,), outflow)
+                d_new = d_new.index_put((res_rows,), d_scat)
 
     nudge = q.new_zeros(gage_rows.shape[0])
     if gage_rows.shape[0]:

@@ -36,7 +36,9 @@ Counters: ``cuda.device_allocs``, the caching allocator's device
 allocations (``cudaMalloc``) made inside ``engine.route`` on a CUDA
 device; ``engine.nudge_lanes`` and ``engine.reservoir_da_lanes``, the
 gage lanes nudged and the reservoir lanes the typed DA computes, added
-each step (from shapes: no device read).
+each step (from shapes: no device read); ``engine.levelpool_launches``,
+the launches of the level-pool kernel (``ops/levelpool_cuda.py``), one a
+step with lakes on a card and none on the CPU.
 """
 
 from __future__ import annotations
