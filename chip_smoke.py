@@ -1497,16 +1497,10 @@ def main_path_turns(base: Path, n: int, nts: int, smi: str) -> None:
 
 def warm_step_args(net, cp, q, d, qlat):
     """B1's inputs for one short step from state (q, d) and lateral inflow
-    ``qlat`` [N], padded to the plan's length as ``_one_short_step`` pads
-    them."""
-    import torch
+    ``qlat`` [N], as ``_one_short_step`` passes them."""
     from troute_torch.routing import engine
-    padz = q.new_zeros(net.uplan.n_pad - q.shape[0])
-    qp = torch.cat([q, padz])
-    args = [engine._upstream_sum_stepped(qp, net.upstream, net.uplan)] * 2 \
-        + [qp, torch.cat([qlat, padz])] \
-        + [torch.cat([c, padz + 1.0]) for c in cp] \
-        + [torch.cat([d, padz])]
+    args = [engine._upstream_sum_stepped(q, net.upstream, net.uplan)] * 2 \
+        + [q, qlat, *cp, d]
     return [a.contiguous() for a in args]
 
 

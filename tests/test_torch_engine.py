@@ -138,8 +138,8 @@ def test_apply_nudging_vs_jax():
                                jnp.asarray(lo_val), jnp.asarray(lo_time),
                                jnp.asarray(obs_t))
     tda_g = convert.from_gage_da(jda_g, device="cpu", dtype=torch.float64)
-    got = teng._apply_nudging(torch.as_tensor(q), t_s, tda_g,
-                              torch.as_tensor(lo_val),
+    got = teng._apply_nudging(torch.as_tensor(q), tda_g.rows, t_s,
+                              tda_g.decay_coeff, torch.as_tensor(lo_val),
                               torch.as_tensor(lo_time),
                               torch.as_tensor(obs_t))
     for a, b in zip(got, want):
@@ -219,9 +219,9 @@ def test_route_stepped_typed_reservoir_da_f64():
 
 
 def test_route_stepped_synthetic_conus_f32():
-    """A CONUS-statistics synthetic network (4000 nodes, padded to 4096)
-    with 8 level-pool reservoirs and 16 gages, 12 steps in f32; the port
-    builds its own network tensors and plan."""
+    """A CONUS-statistics synthetic network (4000 nodes) with 8 level-pool
+    reservoirs and 16 gages, 12 steps in f32; the port builds its own
+    network tensors and plan."""
     n, nts = 4000, 12
     ids, down = bench.synthetic_conus(n=n, n_basins=40)
     rng = np.random.default_rng(17)
@@ -290,15 +290,9 @@ def test_one_short_step_lakes_unchanged_on_cpu(with_da):
                   replace=False)] = 1
     net = teng.network_arrays_from_topology(
         build_topology_postorder(ids, down, node_type=nt), device="cpu")
-    n_pad = net.uplan.n_pad
     chan = teng.ChannelParams.from_arrays(
-        device="cpu", dtype=f32,
-        **{k: np.resize(v, n_pad)
-           for k, v in bench.channel_params(n, rng).items()})
-    up = torch.cat([net.upstream, net.upstream.new_full(
-        (n_pad - n, net.upstream.shape[1]), -1)])
-    is_res = torch.cat([net.is_reservoir,
-                        torch.zeros(n_pad - n, dtype=torch.bool)])
+        device="cpu", dtype=f32, **bench.channel_params(n, rng))
+    up, is_res = net.upstream, net.is_reservoir
     wb = np.stack([rng.uniform(1.0, 3.0, n_res), rng.uniform(11.0, 12.5, n_res),
                    *[np.full(n_res, v) for v in (1.2, 0.1, 8.0, 0.4, 11.0,
                                                  12.0)],
@@ -308,7 +302,7 @@ def test_one_short_step_lakes_unchanged_on_cpu(with_da):
     def t(a):
         return torch.as_tensor(a, dtype=f32)
 
-    q, depth, ql = (t(rng.uniform(lo, hi, n_pad)) for lo, hi in (
+    q, depth, ql = (t(rng.uniform(lo, hi, n)) for lo, hi in (
         (0.5, 5.0), (0.05, 0.8), (0.1, 2.0)))
     res_elev = t(rng.uniform(7.5, 12.5, n_res))
     res_da, states, month_i = None, None, None

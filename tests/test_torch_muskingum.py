@@ -150,6 +150,21 @@ def test_no_flow_exact_zero(dtype):
         assert torch.equal(o, torch.zeros_like(o))
 
 
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_lane_result_independent_of_batch_length(dtype):
+    """Each lane's outputs are the same, bit for bit, whatever the length
+    of the batch it is solved in: the first 1, 5, 37 and 1000 lanes alone
+    against all 4096 together, as B1's are.  ``route_stepped`` solves
+    batches of the network's own length, and the sharded drivers of the
+    partition's padded length."""
+    np_dtype, torch_dtype = DTYPES[dtype]
+    arrs = _inputs(np_dtype)
+    full = _port(arrs, torch_dtype)
+    for n in (1, 5, 37, 1000):
+        for p, f in zip(_port([a[:n] for a in arrs], torch_dtype), full):
+            np.testing.assert_array_equal(p, f[:n], err_msg=str(n))
+
+
 @pytest.mark.parametrize("max_trips", [1, 3, 12])
 def test_max_trips_matches_jax(max_trips):
     arrs = _inputs(np.float64, size=512, seed=5)

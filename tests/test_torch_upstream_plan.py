@@ -103,16 +103,19 @@ def test_postorder_topology_identical_to_jax():
 
 def test_network_arrays_match_converted_jax():
     """The port's ``network_arrays_from_topology`` builds the same tensors
-    that ``convert`` carries over from the JAX ``NetworkArrays``."""
+    that ``convert`` carries over from the JAX ``NetworkArrays``: its plan
+    runs at the network's length (the JAX plan's, 5,120, padded to a
+    multiple of 1024), and ``convert`` cuts the JAX masks to it."""
     ids, down = bench.synthetic_conus(n=5000, n_basins=20)
     nt = np.zeros(ids.size, np.int8)
     nt[::500] = 1
     topo = build_topology(ids, down, node_type=nt)
     net_t = teng.network_arrays_from_topology(topo, device="cpu")
-    net_c = convert.from_network_arrays(
-        jeng.network_arrays_from_topology(topo, need_levels=False),
-        device="cpu")
-    assert net_t.uplan is not None and net_t.uplan.n_pad == 5120
+    jnet = jeng.network_arrays_from_topology(topo, need_levels=False)
+    net_c = convert.from_network_arrays(jnet, device="cpu")
+    assert jnet.uplan.n_pad == 5120
+    assert not np.asarray(jnet.uplan.masks)[:, topo.n_nodes:].any()
+    assert net_t.uplan is not None and net_t.uplan.n_pad == topo.n_nodes
     assert net_t.uplan.shifts == net_c.uplan.shifts
     for a, b in ((net_t.upstream, net_c.upstream),
                  (net_t.is_reservoir, net_c.is_reservoir),

@@ -51,7 +51,10 @@ LOG = logging.getLogger("troute_torch")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    """``a`` on ``device``, contiguous as the kernels take it (a reader
+    may hand over a transposed array)."""
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -58,11 +58,14 @@ def from_levelpool_params(lp, *, device, dtype) -> LevelpoolParams:
 
 def from_network_arrays(net, *, device) -> NetworkArrays:
     """The JAX ``NetworkArrays``, its banded ``UpstreamOp`` and level
-    schedule included."""
+    schedule included.  The JAX plan's masks run over the node axis padded
+    to a multiple of 1024, whose pad rows carry no edge; they are cut to
+    the network's rows, the length the port routes at."""
     uplan = None
     if net.uplan is not None:
+        n = np.shape(net.upstream)[0]
         uplan = UpstreamOp.from_arrays(
-            np.array(net.uplan.masks), np.array(net.uplan.rem_dst),
+            np.array(net.uplan.masks[:, :n]), np.array(net.uplan.rem_dst),
             np.array(net.uplan.rem_src), net.uplan.shifts, device=device)
     return NetworkArrays(
         upstream=_index(net.upstream, device=device),

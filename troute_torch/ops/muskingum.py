@@ -184,6 +184,22 @@ def solve_block(qup, quc, qdp, ql, dx, bw, tw, twcc, n, ncc, cs, s0,
     was still active (0 without flow), and the evaluations, the trips that
     passed the top check and evaluated the residual.
     """
+    # PyTorch's CPU loops take the lanes past the last pair of whole SIMD
+    # vectors through scalar code, whose pow can differ from the vector
+    # code's in the last bit: a CPU batch is padded to whole vectors (no
+    # flow, unit channel values), so that within one thread's grain
+    # (32,768 lanes) no lane's result depends on the batch's length
+    lanes = qup.numel()
+    pad = -lanes % 64 if qup.device.type == "cpu" else 0
+    if pad:
+        def padded(a, fill):
+            return torch.cat([a.reshape(-1), a.new_full((pad,), fill)])
+        out = solve_block(
+            *[padded(a, 0.0) for a in (qup, quc, qdp, ql)],
+            *[padded(c, 1.0) for c in (dx, bw, tw, twcc, n, ncc, cs, s0)],
+            padded(depthp, 0.0), dt, max_trips, return_trips)
+        return tuple(o[:lanes].reshape(qup.shape) for o in out)
+
     dt = torch.full_like(qup, float(dt))
 
     z = torch.where(cs == 0.0, 1.0, 1.0 / torch.where(cs == 0.0, 1.0, cs))

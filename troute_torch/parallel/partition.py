@@ -26,7 +26,12 @@ from dataclasses import dataclass
 import numpy as np
 
 from troute_torch.network.topology import RoutingTopology
-from troute_torch.routing.engine import PAD_MULTIPLE
+
+# A shard's length is a multiple of PAD_MULTIPLE rows: the JAX partition's
+# layout (from the TPU's 8 x 128 tiles), kept so that a partition equals the
+# JAX package's field for field.  Pad slots are ordinary invalid rows
+# (global_row -1) and carry no edge.
+PAD_MULTIPLE = 1024
 
 
 @dataclass(frozen=True)
@@ -142,9 +147,6 @@ def partition_network(topo: RoutingTopology, n_dev: int,
 
     counts = np.bincount(assignment, minlength=n_dev)
     n_local = max(int(counts.max()), 1)
-    # the engine's padding: at world size 1 a shard has route_stepped's
-    # padded length, so its banded plan is route_stepped's.  Pad slots
-    # are ordinary invalid rows (global_row -1)
     n_local = -(-n_local // PAD_MULTIPLE) * PAD_MULTIPLE
 
     global_row = np.full((n_dev, n_local), -1, np.int64)

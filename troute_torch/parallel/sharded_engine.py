@@ -51,7 +51,7 @@ from troute_torch.ops.reservoir_da import (
 from troute_torch.parallel.group import Comm, group_rank
 from troute_torch.parallel.partition import NetworkPartition, scatter_to_shards
 from troute_torch.routing.engine import (ChannelParams, RoutingState,
-                                         _accel_enabled, _nudge, _reservoirs,
+                                         _accel_enabled, _reservoirs,
                                          _upstream_sum)
 from troute_torch.routing.upstream_plan import UpstreamOp
 
@@ -387,17 +387,6 @@ def perm_rounds(perm_pairs) -> tuple:
     perm_np = np.asarray(perm_pairs)
     return tuple(tuple((int(s), int(d)) for s, d in perm_np[r] if s >= 0)
                  for r in range(perm_np.shape[0]))
-
-
-def apply_local_nudge(q_new, gage_slot, gage_obs_t, lo_val, lo_time,
-                      t_seconds: float, decay_coeff: float):
-    """``simple_da`` on the rank's gage lanes (the plan's pads cut off):
-    ``engine._nudge`` at the lanes' local slots.  ``gage_obs_t`` is the
-    step's observations (NaN where missing, and past the end of the
-    table).  Returns (q_new, nudge, lo_val, lo_time)."""
-    replaced, nudge, lo_val, lo_time = _nudge(
-        q_new[gage_slot], t_seconds, decay_coeff, lo_val, lo_time, gage_obs_t)
-    return q_new.index_put((gage_slot,), replaced), nudge, lo_val, lo_time
 
 
 def reservoir_update(q_new, d_new, res_elev, inflow_src, res_slots,

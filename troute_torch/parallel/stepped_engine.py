@@ -22,9 +22,9 @@ strict step's sweeps stop on the group's maximum ``delta`` and ``qmax``,
 read once per poll (one ``all_reduce(MAX)`` of both).
 
 At world size 1 (no cut edges) a step does what ``route_stepped``'s does,
-in the same order and on the same padded rows (``partition.py`` pads to
-the engine's length and orders the band's terms as its plan does), so the
-two agree bit for bit.  The JAX module's single-device fast path
+in the same order on the same rows (the shard's pad rows past the network
+carry no edge, and its plan has the engine's shifts in the engine's
+order), so the two agree bit for bit.  The JAX module's single-device fast path
 (``_make_block_fn``'s plain jit, an answer to ``shard_map``'s overhead)
 and its K-step unroll (an answer to dispatch latency) have no
 counterpart.
@@ -37,12 +37,11 @@ import torch
 from troute_torch.ops.muskingum_cuda import muskingum_cunge_cuda
 from troute_torch.parallel.group import Comm
 from troute_torch.parallel.sharded_engine import (
-    ShardedInputs, ShardedResDA, ShardedRunResult, apply_local_nudge,
-    make_exchange, make_interior_sum, perm_rounds,
-    reservoir_update, zero_da_states)
-from troute_torch.routing.engine import (ChannelParams, _np_dtype,
-                                         _upstream_sum, accel_gain,
-                                         apply_linear_accel)
+    ShardedInputs, ShardedResDA, ShardedRunResult, make_exchange,
+    make_interior_sum, perm_rounds, reservoir_update, zero_da_states)
+from troute_torch.routing.engine import (ChannelParams, _apply_nudging,
+                                         _np_dtype, _upstream_sum,
+                                         accel_gain, apply_linear_accel)
 
 
 class _Shard:
@@ -145,9 +144,9 @@ class _Shard:
                 das = tuple(_put_lanes(s, u) for s, u in zip(das, sub))
         nudge = q.new_zeros(lo_val.shape[0])
         if self.n_g:
-            q_new, nudge_g, lov, lot = apply_local_nudge(
-                q_new, self.gage_slot, obs_t, lo_val[:self.n_g],
-                lo_time[:self.n_g], t_seconds, self.decay)
+            q_new, nudge_g, lov, lot = _apply_nudging(
+                q_new, self.gage_slot, t_seconds, self.decay,
+                lo_val[:self.n_g], lo_time[:self.n_g], obs_t)
             nudge = _put_lanes(nudge, nudge_g)
             lo_val, lo_time = _put_lanes(lo_val, lov), _put_lanes(lo_time, lot)
         return q_new, v_new, d_new, res_elev, lo_val, lo_time, das, nudge

@@ -52,8 +52,6 @@ from troute_torch.routing.upstream_plan import (UpstreamOp, build_upstream_plan,
                                                 remainder_add)
 from troute_torch.tracing import count, device_allocs, span
 
-PAD_MULTIPLE = 1024  # node-axis padding, so the plan's n_pad fits the vectors
-
 
 class ChannelParams(NamedTuple):
     """Columnar per-node MC channel geometry [N]; values at reservoir rows
@@ -200,7 +198,7 @@ def network_arrays_from_topology(topo, *, device, need_levels: bool = False,
                                  level_chunk_width: int | None = None
                                  ) -> NetworkArrays:
     """Index tensors of a ``RoutingTopology`` on ``device``, with the
-    banded upstream-sum plan for the padded length when the row order
+    banded upstream-sum plan at the network's length when the row order
     allows one (``routing/upstream_plan.py``); else the gather form.
     ``need_levels`` adds the level scan's schedule: one row per level, or
     rows of at most ``level_chunk_width`` nodes when it is given."""
@@ -212,8 +210,7 @@ def network_arrays_from_topology(topo, *, device, need_levels: bool = False,
             dtype=torch.int64, device=device)
     upstream = np.asarray(topo.upstream)
     uop = None
-    n_pad = -(-topo.n_nodes // PAD_MULTIPLE) * PAD_MULTIPLE
-    plan = build_upstream_plan(upstream, n_pad)
+    plan = build_upstream_plan(upstream, topo.n_nodes)
     if plan is not None:
         upstream = plan.upstream_sorted
         uop = UpstreamOp.from_plan(plan, device=device)
@@ -238,9 +235,9 @@ def _upstream_sum(q: torch.Tensor, upstream: torch.Tensor) -> torch.Tensor:
 
 
 def _upstream_sum_stepped(q, upstream, uplan):
-    """Per-node upstream flow sums: banded plan when it fits the padded
-    length, gather otherwise."""
-    if uplan is not None and q.shape[0] == uplan.n_pad:
+    """Per-node upstream flow sums: the banded plan when the network has
+    one, the gather form otherwise."""
+    if uplan is not None:
         return uplan(q)
     return _upstream_sum(q, upstream)
 
@@ -264,17 +261,19 @@ def _nudge(model, t_seconds: float, decay_coeff: float, lastobs_val,
     return replaced, nudge, new_val, new_time
 
 
-def _apply_nudging(q, t_seconds: float, da: GageDA, lastobs_val,
-                   lastobs_time, obs_t):
-    """Vectorized ``simple_da`` over all gages of ``da``, inside the span
-    ``engine.nudge``; the counter ``engine.nudge_lanes`` adds the gage
-    lanes."""
+def _apply_nudging(q, rows, t_seconds: float, decay_coeff: float,
+                   lastobs_val, lastobs_time, obs_t):
+    """Vectorized ``simple_da`` on the gage lanes at ``rows`` of ``q``
+    (``obs_t`` the step's observations, NaN where missing), inside the
+    span ``engine.nudge``; the counter ``engine.nudge_lanes`` adds the
+    gage lanes.  Returns (q, nudge, new last obs value, new last obs
+    time)."""
     with span("engine.nudge"):
-        count("engine.nudge_lanes", da.rows.shape[0])
+        count("engine.nudge_lanes", rows.shape[0])
         replaced, nudge, new_val, new_time = _nudge(
-            q[da.rows], t_seconds, da.decay_coeff, lastobs_val,
-            lastobs_time, obs_t)
-        q = q.index_put((da.rows,), replaced)
+            q[rows], t_seconds, decay_coeff, lastobs_val, lastobs_time,
+            obs_t)
+        q = q.index_put((rows,), replaced)
     return q, nudge, new_val, new_time
 
 
@@ -441,10 +440,8 @@ def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
 
     nudge = q.new_zeros(gage_rows.shape[0])
     if gage_rows.shape[0]:
-        da = GageDA(rows=gage_rows, obs=obs_t[None], lastobs_val=lo_val,
-                    lastobs_time=lo_time, decay_coeff=decay_coeff)
         q_new, nudge, lo_val, lo_time = _apply_nudging(
-            q_new, t_seconds, da, lo_val, lo_time, obs_t)
+            q_new, gage_rows, t_seconds, decay_coeff, lo_val, lo_time, obs_t)
 
     res = (q_new, v_new, d_new, res_elev, lo_val, lo_time, nudge,
            da_states, courant)
@@ -535,15 +532,21 @@ def _strict_sweeps(q_est, q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
     return out + (gain,) if compute_gain else out
 
 
-def _cols(a: torch.Tensor, width: int) -> torch.Tensor:
-    """[N] -> [width, N/width], contiguous: row c is column c of the
-    [N/width, width] view, so each column solve gets contiguous lanes."""
-    return a.reshape(-1, width).t().contiguous()
+def _cols(a: torch.Tensor, width: int, fill=0) -> torch.Tensor:
+    """[..., N] -> [..., width, ceil(N/width)], contiguous: node i lies in
+    column i mod width, at row i // width, so each column solve gets
+    contiguous lanes.  The layout's lanes past N hold ``fill``."""
+    pad = -a.shape[-1] % width
+    if pad:
+        a = torch.cat([a, a.new_full(a.shape[:-1] + (pad,), fill)], dim=-1)
+    return a.reshape(*a.shape[:-1], -1, width).transpose(-1, -2).contiguous()
 
 
 class _GSStep(NamedTuple):
     """The inputs of one strict timestep that the GS column sweeps read,
-    laid out once per step as [C, N/C] (see ``_cols``)."""
+    laid out once per step as [C, ceil(N/C)] (see ``_cols``): the lanes
+    past N carry no flow, unit channel values, no upstream, no reservoir
+    and no gage."""
 
     up_prev: torch.Tensor
     q: torch.Tensor
@@ -551,7 +554,7 @@ class _GSStep(NamedTuple):
     ql: torch.Tensor
     chan: ChannelParams
     is_res: torch.Tensor
-    masks: torch.Tensor         # [D, C, N/C]
+    masks: torch.Tensor         # [D, C, ceil(N/C)]
     up_res: torch.Tensor        # [n_res, K] upstream rows of reservoirs
     gmask: torch.Tensor | None  # gage lanes, and their obs / last obs
     obs: torch.Tensor | None
@@ -567,17 +570,16 @@ def _gs_step_inputs(q, depth, ql_t, obs_t, lo_val, lo_time, upstream,
     if gage_rows.shape[0]:
         def scat(v, fill):
             return _cols(q.new_full((n,), fill).index_put((gage_rows,), v),
-                         width)
+                         width, fill)
         gage = [_cols(torch.zeros(n, dtype=torch.bool, device=q.device)
                       .index_fill(0, gage_rows, True), width),
                 scat(obs_t, float("nan")), scat(lo_val, float("nan")),
                 scat(lo_time, 0.0)]
-    d = uplan.masks.shape[0]
     return _GSStep(
         _cols(uplan(q), width), _cols(q, width), _cols(depth, width),
-        _cols(ql_t, width), ChannelParams(*[_cols(c, width) for c in chan]),
-        _cols(is_res, width),
-        uplan.masks.reshape(d, -1, width).permute(0, 2, 1).contiguous(),
+        _cols(ql_t, width),
+        ChannelParams(*[_cols(c, width, 1.0) for c in chan]),
+        _cols(is_res, width), _cols(uplan.masks, width),
         upstream[res_rows], *gage)
 
 
@@ -589,17 +591,18 @@ def _strict_gs_sweeps(q_est, g: _GSStep, res_elev, t_seconds: float,
     """``n_sweeps`` Gauss-Seidel sweeps of one strict timestep
     (``troute_tpu/routing/engine.py:_strict_gs_sweep_kernel``).
 
-    The padded post-order rows [N] are viewed as [N/C, C]; a sweep solves
-    the C columns in turn, each over its N/C rows.  A band source at
-    displacement d <= c lies in the same row and reads this sweep's column
-    c - d; other band sources, the remainder and the reservoirs read the
-    previous iterate, so the splitting keeps the Jacobi fixed point.
+    The post-order rows [N] are laid out as [ceil(N/C), C] (``_cols``); a
+    sweep solves the C columns in turn, each over its ceil(N/C) rows.  A
+    band source at displacement d <= c lies in the same row and reads this
+    sweep's column c - d; other band sources, the remainder and the
+    reservoirs read the previous iterate, so the splitting keeps the
+    Jacobi fixed point.
     Reservoir outflows come once per sweep from the old iterate's inflows
     (candidate DA states discarded); nudging applies per column.  Returns
     (q_est, delta, qmax), the last two 0-d tensors on the device.
     """
-    width, n_rows = g.q.shape
-    n = width * n_rows
+    width = g.q.shape[0]
+    n = q_est.shape[0]
     shifts = uplan.shifts
     lo = max(shifts)
     n_res = res_rows.shape[0]
@@ -638,13 +641,9 @@ def _strict_gs_sweeps(q_est, g: _GSStep, res_elev, t_seconds: float,
                                   g.lot[c], g.obs[c])[0]
                 col_q = torch.where(g.gmask[c], replaced, col_q)
             cols.append(col_q)
-        q_est = torch.stack(cols).t().reshape(n)
+        q_est = torch.stack(cols).t().reshape(-1)[:n]
         delta = torch.max(torch.abs(q_est - q_old))
     return q_est, delta, torch.max(torch.abs(q_est))
-
-
-def _pad_rows(a: torch.Tensor, pad: int, fill) -> torch.Tensor:
-    return torch.cat([a, a.new_full((pad,) + tuple(a.shape[1:]), fill)])
 
 
 def route_stepped(net: NetworkArrays, chan: ChannelParams,
@@ -751,75 +750,59 @@ def da_handoff(da: GageDA | None, res_da: ReservoirDAData | None,
 
 def _drive(driver, net, chan, res_params, cfg, q0, depth0, res_elev0, qlat,
            da, res_da, collect, month_clip: bool):
-    """Pad the node axis to the banded plan's length, stage the DA inputs
-    and run ``driver`` over the steps, inside the span ``engine.route``
-    (which also counts the device allocations made in it).
-    ``month_clip``: a month table shorter than the run clips to its last
-    entry (the stepped drivers); else every month is 0 (``route()``'s
-    scan)."""
+    """Stage the DA inputs and run ``driver`` over the steps, inside the
+    span ``engine.route`` (which also counts the device allocations made
+    in it).  ``month_clip``: a month table shorter than the run clips to
+    its last entry (the stepped drivers); else every month is 0
+    (``route()``'s scan)."""
+    device, dtype = q0.device, q0.dtype
     with span("engine.route"):
-        allocs = device_allocs(q0.device)
-        out = _drive_padded(driver, net, chan, res_params, cfg, q0, depth0,
-                            res_elev0, qlat, da, res_da, collect, month_clip)
-        end = device_allocs(q0.device)
+        allocs = device_allocs(device)
+        have_da = da is not None and da.rows.shape[0] > 0
+        empty = torch.zeros(0, dtype=dtype, device=device)
+        gage_rows = (da.rows if have_da
+                     else torch.zeros(0, dtype=torch.int64, device=device))
+        lo_val = da.lastobs_val if have_da else empty
+        lo_time = da.lastobs_time if have_da else empty
+        decay = da.decay_coeff if have_da else 120.0
+        n_obs_t = da.obs.shape[0] if have_da else 0
+        nan_obs = (torch.full((da.obs.shape[1],), float("nan"), dtype=dtype,
+                              device=device) if have_da else empty)
+        # month per step, read once a call from the host tensor
+        month_host = (res_da.month_idx.cpu().numpy() if res_da is not None
+                      else None)
+        if month_host is not None and not month_clip \
+                and month_host.shape[0] <= cfg.nts:
+            month_host = np.zeros(cfg.nts + 1, np.int64)
+
+        def step_inputs(t: int):
+            """The row selection of the JAX drivers: out-of-range qlat
+            columns clamp, obs rows past the table are NaN."""
+            col = min(max((t - 1) // cfg.qts_subdivisions, 0),
+                      qlat.shape[0] - 1)
+            obs_t = da.obs[t] if have_da and t < n_obs_t else nan_obs
+            month_i = (int(month_host[min(t, month_host.shape[0] - 1)])
+                       if res_da is not None else None)
+            return qlat[col], obs_t, month_i
+
+        da_states = (None if res_da is None else
+                     (res_da.hybrid_state0, res_da.rfc_state0,
+                      res_da.gl_state0))
+        out = driver(net, chan, res_params, cfg, q0, depth0, res_elev0,
+                     lo_val, lo_time, gage_rows, decay, res_da, da_states,
+                     step_inputs, collect)
+        end = device_allocs(device)
         if allocs is not None and end is not None:
             count("cuda.device_allocs", end - allocs)
     return out
 
 
-def _drive_padded(driver, net, chan, res_params, cfg, q0, depth0, res_elev0,
-                  qlat, da, res_da, collect, month_clip: bool):
-    device, dtype = q0.device, q0.dtype
-    n_real = q0.shape[0]
-    pad = (-n_real) % PAD_MULTIPLE
-    if pad:
-        q0, depth0 = _pad_rows(q0, pad, 0.0), _pad_rows(depth0, pad, 0.0)
-        chan = ChannelParams(*[_pad_rows(c, pad, 1.0) for c in chan])
-        qlat = torch.cat([qlat, qlat.new_zeros((qlat.shape[0], pad))], dim=1)
-        net = net._replace(upstream=_pad_rows(net.upstream, pad, -1),
-                           is_reservoir=_pad_rows(net.is_reservoir, pad,
-                                                  False))
-
-    have_da = da is not None and da.rows.shape[0] > 0
-    empty = torch.zeros(0, dtype=dtype, device=device)
-    gage_rows = (da.rows if have_da
-                 else torch.zeros(0, dtype=torch.int64, device=device))
-    lo_val = da.lastobs_val if have_da else empty
-    lo_time = da.lastobs_time if have_da else empty
-    decay = da.decay_coeff if have_da else 120.0
-    n_obs_t = da.obs.shape[0] if have_da else 0
-    nan_obs = (torch.full((da.obs.shape[1],), float("nan"), dtype=dtype,
-                          device=device) if have_da else empty)
-    # month per step, read once a call from the host tensor
-    month_host = (res_da.month_idx.cpu().numpy() if res_da is not None
-                  else None)
-    if month_host is not None and not month_clip \
-            and month_host.shape[0] <= cfg.nts:
-        month_host = np.zeros(cfg.nts + 1, np.int64)
-
-    def step_inputs(t: int):
-        """The row selection of the JAX drivers: out-of-range qlat columns
-        clamp, obs rows past the table are NaN."""
-        col = min(max((t - 1) // cfg.qts_subdivisions, 0), qlat.shape[0] - 1)
-        obs_t = da.obs[t] if have_da and t < n_obs_t else nan_obs
-        month_i = (int(month_host[min(t, month_host.shape[0] - 1)])
-                   if res_da is not None else None)
-        return qlat[col], obs_t, month_i
-
-    da_states = (None if res_da is None else
-                 (res_da.hybrid_state0, res_da.rfc_state0,
-                  res_da.gl_state0))
-    return driver(net, chan, res_params, cfg, q0, depth0, res_elev0, lo_val,
-                  lo_time, gage_rows, decay, res_da, da_states, step_inputs,
-                  collect, n_real)
-
-
-def _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time, da_states,
-            collect, fvds, nudges, courants) -> dict:
+def _result(cfg, q, depth, res_elev, lo_val, lo_time, da_states, collect,
+            fvds, nudges, courants) -> dict:
     hyb, rfc, gl = da_states if da_states is not None else (None,) * 3
-    state = RoutingState(q=q[:n_real], depth=depth[:n_real],
-                         res_elev=res_elev, lastobs_val=lo_val,
-                         lastobs_time=lo_time, hybrid=hyb, rfc=rfc, gl=gl)
+    state = RoutingState(q=q, depth=depth, res_elev=res_elev,
+                         lastobs_val=lo_val, lastobs_time=lo_time,
+                         hybrid=hyb, rfc=rfc, gl=gl)
     out = {"state": state, "flowveldepth": None, "nudge": None}
     if collect:
         with span("engine.collect"):
@@ -836,7 +819,7 @@ def _np_dtype(dtype: torch.dtype):
 
 def _route_short(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
                  lo_time, gage_rows, decay, res_da, da_states, step_inputs,
-                 collect, n_real) -> dict:
+                 collect) -> dict:
     """The short-timestep steps of ``route_stepped``."""
     real = _np_dtype(q.dtype)
     fvds, nudges, courants = [], [], []
@@ -854,17 +837,17 @@ def _route_short(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
                 return_courant=cfg.return_courant, uplan=net.uplan)
             if collect:
                 with span("engine.collect"):
-                    fvds.append(torch.stack([q, v, depth], dim=-1)[:n_real])
+                    fvds.append(torch.stack([q, v, depth], dim=-1))
                     nudges.append(nudge)
                     if cfg.return_courant:
-                        courants.append(courant[:n_real])
-    return _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
-                   da_states, collect, fvds, nudges, courants)
+                        courants.append(courant)
+    return _result(cfg, q, depth, res_elev, lo_val, lo_time, da_states,
+                   collect, fvds, nudges, courants)
 
 
 def _route_strict(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
                   lo_time, gage_rows, decay, res_da, da_states, step_inputs,
-                  collect, n_real) -> dict:
+                  collect) -> dict:
     """The strict fixed-point steps of ``route_stepped``
     (``troute_tpu/routing/engine.py:1316-1507``).
 
@@ -882,18 +865,15 @@ def _route_strict(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
     """
     dtype = q.dtype
     real = _np_dtype(dtype)
-    n_pad = q.shape[0]
     eps4 = 4.0 * torch.finfo(dtype).eps
     sweeps_cfg = max(int(cfg.strict_sweep_chunk), 1)
     cap = int(cfg.strict_max_sweeps)
     uplan = net.uplan
     width = int(cfg.strict_gs_cols)
     use_gs = (_resolve_flag(cfg.strict_gs, False) and uplan is not None
-              and len(uplan.shifts) > 0 and all(d > 0 for d in uplan.shifts)
-              and n_pad == uplan.n_pad and n_pad % width == 0)
+              and len(uplan.shifts) > 0 and all(d > 0 for d in uplan.shifts))
     use_accel = (_accel_enabled(cfg, stepped=True) and not use_gs
-                 and uplan is not None and n_pad == uplan.n_pad
-                 and cfg.strict_accel_lin > 0)
+                 and uplan is not None and cfg.strict_accel_lin > 0)
     use_skip = _resolve_flag(cfg.strict_block_skip, False) and not use_gs
     gs_chunk = max(1, sweeps_cfg // 8)
     tol_latest = None
@@ -991,13 +971,13 @@ def _route_strict(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
         q, depth, res_elev = q_est, d, res_elev_c
         lo_val, lo_time, da_states = lo_val_c, lo_time_c, da_states_c
         if collect:
-            fvds.append(torch.stack([q, v, d], dim=-1)[:n_real])
+            fvds.append(torch.stack([q, v, d], dim=-1))
             nudges.append(nudge_t)
             if cfg.return_courant:
-                courants.append(cour_t[:n_real])
+                courants.append(cour_t)
 
-    out = _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
-                  da_states, collect, fvds, nudges, courants)
+    out = _result(cfg, q, depth, res_elev, lo_val, lo_time, da_states,
+                  collect, fvds, nudges, courants)
     out["strict_sweeps"] = sweep_counts
     out["strict_mc_calls"] = calls
     return out
@@ -1005,7 +985,7 @@ def _route_strict(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
 
 def _route_strict_iter(net, chan, res_params, cfg, q, depth, res_elev,
                        lo_val, lo_time, gage_rows, decay, res_da, da_states,
-                       step_inputs, collect, n_real) -> dict:
+                       step_inputs, collect) -> dict:
     """``route()``'s fixed-point strict steps
     (``troute_tpu/routing/engine.py:703-801``).
 
@@ -1068,12 +1048,12 @@ def _route_strict_iter(net, chan, res_params, cfg, q, depth, res_elev,
         sweep_counts.append(k)
         mc_calls += k + 1
         if collect:
-            fvds.append(torch.stack([q, v, depth], dim=-1)[:n_real])
+            fvds.append(torch.stack([q, v, depth], dim=-1))
             nudges.append(nudge)
             if cfg.return_courant:
-                courants.append(courant[:n_real])
-    out = _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
-                  da_states, collect, fvds, nudges, courants)
+                courants.append(courant)
+    out = _result(cfg, q, depth, res_elev, lo_val, lo_time, da_states,
+                  collect, fvds, nudges, courants)
     out["strict_sweeps"] = sweep_counts
     out["mc_calls"] = mc_calls
     return out
@@ -1176,7 +1156,7 @@ def _put_states(states, idx, sub):
 
 def _route_levels(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
                   lo_time, gage_rows, decay, res_da, da_states, step_inputs,
-                  collect, n_real) -> dict:
+                  collect) -> dict:
     """``route()``'s level-scan strict steps
     (``troute_tpu/routing/engine.py:604-701``).
 
@@ -1265,12 +1245,12 @@ def _route_levels(net, chan, res_params, cfg, q, depth, res_elev, lo_val,
         res_elev, da_states = res_elev_c, states_c
         lo_val, lo_time = lo_val_c, lo_time_c
         if collect:
-            fvds.append(torch.stack([q, v, depth], dim=-1)[:n_real])
+            fvds.append(torch.stack([q, v, depth], dim=-1))
             nudges.append(nudge)
             if c_lv is not None:
                 courants.append(q.new_zeros((n, 3)).index_copy_(
-                    0, order, c_lv)[:n_real])
-    out = _result(cfg, n_real, q, depth, res_elev, lo_val, lo_time,
-                  da_states, collect, fvds, nudges, courants)
+                    0, order, c_lv))
+    out = _result(cfg, q, depth, res_elev, lo_val, lo_time, da_states,
+                  collect, fvds, nudges, courants)
     out["mc_calls"] = mc_calls
     return out

@@ -34,7 +34,9 @@ MAX_REMAINDER_FRAC = 0.20
 
 @dataclass(frozen=True)
 class UpstreamPlan:
-    """Host-side banded summation plan for one padded network layout.
+    """Host-side banded summation plan over ``n_pad`` rows: the network's
+    own length in ``route_stepped``, a shard's padded length in a
+    partition.
 
     ``masks[i]`` marks rows whose upstream at displacement ``shifts[i]``
     exists; remainder edges are (dst, src) row pairs handled by a sparse

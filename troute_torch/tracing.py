@@ -24,7 +24,7 @@ read the records with ``records()`` and ``counts()`` when the profiled
 run ends, or take them with ``drain()``, between top-level calls.
 
 Spans: ``bmi.update_until`` (with ``bmi.ingest`` before the engine and
-``bmi.publish`` after it), ``engine.route`` (padding, staging and the
+``bmi.publish`` after it), ``engine.route`` (staging the DA inputs and the
 driver), ``engine.step`` (one short step, with ``engine.upstream_sum``,
 ``engine.mc``, ``engine.reservoirs`` and ``engine.collect`` inside it),
 and ``engine.collect`` again around the final stacks of the result.  With
