@@ -184,6 +184,22 @@ Run from the root of a checkout, with no arguments:
    (phases 6 and 8: B1's and B2's launches together), the same number in
    each step of the level scan (phase 9).  The ranks that phase 12
    spawns are not counted.
+14. Kernel L1's DA form against the block it replaces, run right after
+   phase 13: at the AnA cell's shapes (5,441 lakes on 2,729,077 node rows,
+   193 persistence observations, 76 RFC values; 436 persistence, 78 RFC
+   and 48 Great Lakes lakes spread over every branch of
+   ``tests/reservoir_da_lanes.py``, the rest level pool, in a shuffled
+   order), in f32 and f64, the row form with ``into`` and the lane form
+   against L1 without DA, the plain ``typed_reservoir_dispatch`` and
+   ``index_put`` on the same inputs, bit for bit (NaN where NaN): the
+   node tensors or outflow, elevation and depth column, the nine DA state
+   fields, and the caller's states untouched; both launch counters
+   (every L1 launch, the DA form's) zeroed before and checked after, one
+   launch a call.  Then, f32 row form (the AnA step's form), the DA form's
+   device time a call and the plain block's (profiler), the interval at
+   which each is enqueued back to back (CUDA events), and the bound: the
+   bytes the DA form reads and writes on those lakes (each lake's own
+   walks counted) over the HBM rate.
 
 ``--phases LIST`` (e.g. ``9,10`` or ``2-8``) runs only those phases after
 phase 1 and then prints no result lines; the default runs them all.
@@ -969,6 +985,279 @@ def phase_levelpool(device, dev: dict, n_res: int, n_nodes: int) -> dict:
                 enqueue_ms=enqueue["l1"], plain_enqueue_ms=enqueue["plain"],
                 plain_kernels=plain_kernels, bytes_per_lake=n_bytes / n_res,
                 max_abs=max_abs)
+
+
+# the AnA cell's lakes by DA kind (the rest level pool): NWM's CONUS
+# persistence and RFC lakes, and Great Lakes lakes of every branch
+ANA_DA_LAKES = {"hybrid": 436, "rfc": 78, "great lakes": 48}
+
+
+def _ana_lakes(device, dtype, n_res: int, n_nodes: int, seed: int) -> dict:
+    """``n_res`` lakes of ``tests/reservoir_da_lanes.py`` in the AnA cell's
+    mix (``ANA_DA_LAKES``, each kind's lakes spread evenly over its
+    branches, the rest level pool), in a shuffled order, on distinct
+    sorted rows of ``n_nodes``: ``da_lanes``' dict with ``rows``, the node
+    inflows ``quc`` (the lakes' ``inflow`` at their rows) and node tensors
+    ``q`` and ``d`` to scatter into."""
+    import torch
+    import reservoir_da_lanes as rdl
+    from troute_torch.ops.levelpool import LevelpoolParams
+    from troute_torch.routing import engine
+    x = rdl.da_lanes(dtype, device, per_branch=64, seed=seed)
+    rng = np.random.default_rng(seed)
+    branch = x["branch"]
+    names = list(dict.fromkeys(b for _, b in rdl.BRANCHES))
+    pick = []
+    for kind, total in ANA_DA_LAKES.items():
+        kind_names = [b for b in names if b.startswith(kind)]
+        for b, k in zip(kind_names, (len(a) for a in np.array_split(
+                np.arange(total), len(kind_names)))):
+            pick.append(rng.choice(np.flatnonzero(branch == b), k,
+                                   replace=False))
+    level_pool = np.flatnonzero(np.char.startswith(branch, "level pool"))
+    pick.append(rng.choice(level_pool, n_res - sum(map(len, pick))))
+    pick = rng.permutation(np.concatenate(pick))
+    idx = torch.as_tensor(pick, device=device)
+    rd = x["res_da"]
+    rd = rd._replace(**{f: getattr(rd, f)[idx] for f in rd._fields
+                        if f not in engine._RES_DA_SHARED})
+    rows = torch.as_tensor(np.sort(rng.choice(n_nodes, n_res,
+                                              replace=False)), device=device)
+    inflow = x["inflow"][idx]
+
+    def nodes(hi):
+        return torch.as_tensor(rng.uniform(0, hi, n_nodes), dtype=dtype,
+                               device=device)
+
+    return dict(x, H=x["H"][idx], inflow=inflow, res_da=rd,
+                p=LevelpoolParams(*[c[idx] for c in x["p"]]),
+                states=tuple(type(s)(*[f[idx] for f in s])
+                             for s in x["states"]),
+                branch=branch[pick], rows=rows,
+                quc=nodes(500).index_put((rows,), inflow), q=nodes(500),
+                d=nodes(10))
+
+
+def _da_bytes(x) -> tuple[int, dict]:
+    """The bytes that L1's DA form, row form with ``into``, reads and
+    writes on the lakes ``x`` (``_ana_lakes``), each value once, and the
+    mean walk of each kind.  Every lake: its row, ``quc`` there, its
+    elevation, nine parameters and type, the nine DA states in and out,
+    the new elevation, ``q[row]`` and ``d[row]``.  Persistence lakes: the
+    shared observation times once, and the observations their walk back
+    reads.  RFC lakes: the flag, then the persist time, count and time
+    step as far as their tests go, the series value and the walk back of
+    a negative outflow.  Great Lakes lakes: the month's climatology, the
+    observation times walked back and one observation."""
+    rd, (hyb, rfc, _) = x["res_da"], x["states"]
+    item = x["H"].element_size()
+    np_dtype = np.float32 if item == 4 else np.float64
+    now = np_dtype(x["now"])
+
+    def c(a):
+        return a.cpu().numpy()
+
+    def last_true(ok):
+        """Per row, the last column where ``ok`` holds, else -1."""
+        return np.where(ok.any(1), ok.shape[1] - 1
+                        - np.argmax(ok[:, ::-1], axis=1), -1)
+
+    wt = c(rd.wbody_type)
+    n = wt.size
+    total = n * (8 + item * 11 + 4 + 2 * (8 * item + 4) + item * 3)
+    walks = {}
+    h = (wt == 2) | (wt == 3)
+    times = c(rd.hybrid_obs_time)
+    total += times.size * item
+    diff = c(hyb.update_time)[h, None] - times[None, :]
+    t_idx = np.argmin(np.where(diff >= 0, diff, np.inf), axis=1)
+    obs = c(rd.hybrid_obs)[h]
+    cols = np.arange(obs.shape[1])
+    pick = last_true(~np.isnan(obs) & (cols <= t_idx[:, None]))
+    reads = t_idx - pick + (pick >= 0)
+    total += item * int(reads.sum())
+    walks["hybrid"] = float(reads.mean()) if reads.size else 0.0
+
+    r = (wt == 4) | (wt == 5)
+    use = c(rd.rfc_use)[r]
+    in_window = use & (now <= c(rd.rfc_persist_seconds)[r])
+    test = in_window & (now >= c(rfc.update_time)[r])
+    ts = c(rfc.timeseries_idx)[r].astype(np.int64)
+    advance = test & (ts < c(rd.rfc_counts)[r])
+    series = c(rd.rfc_series)[r]
+    idx = np.clip(ts + advance, 0, series.shape[1] - 1)
+    ts_val = series[np.arange(idx.size), idx]
+    o = np.where(wt[r] == 4, ts_val, c(x["inflow"])[r] + ts_val)
+    cols = np.arange(series.shape[1])
+    back = last_true((series >= 0) & (cols >= 1) & (cols <= idx[:, None]))
+    extra = np.where(back >= 0, idx - back, np.maximum(idx - 1, 0))
+    extra = np.where(in_window & (o < 0), extra, 0)
+    total += int(r.sum() + item * use.sum() + 4 * test.sum()
+                 + item * (advance.sum() + in_window.sum() + extra.sum()))
+    walks["rfc"] = float((1 + extra)[in_window].mean()) \
+        if in_window.any() else 0.0
+
+    g = wt == 6
+    gl_time = c(rd.gl_obs_time)[g]
+    pick = last_true(now - gl_time >= 0)
+    reads = np.where(pick >= 0, gl_time.shape[1] - pick, gl_time.shape[1])
+    total += item * int(2 * g.sum() + reads.sum())
+    walks["great lakes"] = float(reads.mean()) if reads.size else 0.0
+    return total, walks
+
+
+def phase_levelpool_da(device, dev: dict, n_res: int, n_nodes: int) -> dict:
+    """Phase 14: kernel L1's DA form against the block it replaces, on the
+    card (the module docstring)."""
+    import torch
+    import reservoir_da_lanes as rdl
+    from troute_torch.ops import levelpool_cuda
+    smi = dev["smi"]
+    max_abs = 0.0
+    launches = 0
+
+    def counts():
+        return levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES
+
+    def expect(want, what):
+        if counts() != want:
+            raise AssertionError(f"phase 14: {what}: L1 launched "
+                                 f"{counts()} (all, DA form), expected "
+                                 f"{want}")
+
+    for dtype in (torch.float32, torch.float64):
+        x = _ana_lakes(device, dtype, n_res, n_nodes, seed=14)
+        H, inflow, p, rd, st = (x[k] for k in ("H", "inflow", "p", "res_da",
+                                              "states"))
+        rows, quc, q, d = (x[k] for k in ("rows", "quc", "q", "d"))
+        now, month = x["now"], x["month_i"]
+        kept = [[f.clone() for f in s] for s in st]
+        q_in, d_in = q.clone(), d.clone()
+        levelpool_cuda.LAUNCHES = levelpool_cuda.DA_LAUNCHES = 0
+        elev, st_rows = levelpool_cuda.levelpool_da_rows_cuda(
+            H, quc, rows, DT, p, rd, st, now, month, into=(q_in, d_in))
+        *lanes, st_lanes = levelpool_cuda.levelpool_da_step_cuda(
+            H, inflow, DT, p, rd, st, now, month)
+        expect((2, 2), f"{dtype} DA forms")
+        # the plain block: L1 without DA, the plain dispatch, index_put
+        lp_out, lp_elev, lake_in = levelpool_cuda.levelpool_rows_cuda(
+            H, quc, rows, DT, p)
+        out, w_elev, d_scat, *w_rows = rdl.plain_dispatch(
+            rd, st, H, lake_in, lp_out, lp_elev, now, month, p, DT)
+        lp_out, lp_elev = levelpool_cuda.levelpool_step_cuda(
+            H, inflow, inflow, None, DT, p)
+        w_lanes = rdl.plain_dispatch(rd, st, H, inflow, lp_out, lp_elev,
+                                     now, month, p, DT)
+        expect((4, 2), f"{dtype} DA forms and the plain blocks")
+        l1_read(4, f"phase 14 {dtype}", 14)
+        torch.cuda.synchronize()
+        launches += 2
+        pairs = {"rows": [(q_in, q.index_put((rows,), out)), (elev, w_elev),
+                          (d_in, d.index_put((rows,), d_scat))],
+                 "lanes": list(zip(lanes, w_lanes[:3]))}
+        for form, got_st, want_st in (("rows", st_rows, w_rows),
+                                      ("lanes", st_lanes, w_lanes[3:])):
+            pairs[form] += [(g, w) for gs, ws in zip(got_st, want_st)
+                            for g, w in zip(gs, ws)]
+        pairs["caller's states"] = [(f, k) for s, ks in zip(st, kept)
+                                    for f, k in zip(s, ks)]
+        for form, ps in pairs.items():
+            for k, (g, w) in enumerate(ps):
+                if g.is_floating_point() and w.dtype == g.dtype:
+                    max_abs = max(max_abs, float(
+                        (g.nan_to_num(0.0) - w.nan_to_num(0.0)).abs().max()))
+                if not rdl.same(g, w):
+                    off = ~((g == w) | (torch.isnan(g) & torch.isnan(w))) \
+                        if g.is_floating_point() else g != w
+                    where = sorted(set(x["branch"][off.cpu().numpy()])) \
+                        if g.shape == H.shape else "node rows"
+                    raise AssertionError(
+                        f"phase 14: L1's DA form {form} {dtype} output "
+                        f"{k} ({g.dtype} {tuple(g.shape)}) differs from "
+                        f"the plain block at {where}")
+        kinds = {str(b): int((x["branch"] == b).sum())
+                 for b in dict.fromkeys(x["branch"])}
+        log(f"phase 14: L1's DA form vs L1 + typed_reservoir_dispatch + "
+            f"index_put {dtype}, {n_res} lakes on {n_nodes} rows "
+            f"({rd.hybrid_obs.shape[1]} persistence observations, "
+            f"{rd.rfc_series.shape[1]} RFC values): row form (q, elevation, "
+            f"d, nine DA states) and lane form (outflow, elevation, depth "
+            f"column, nine DA states) bit for bit, the caller's states "
+            f"untouched, launches (all, DA form) {counts()}; lakes by "
+            f"branch {kinds}")
+
+    # the short step's form, f32: device time, enqueue interval, bound
+    x = _ana_lakes(device, torch.float32, n_res, n_nodes, seed=15)
+    H, p, rd, st = (x[k] for k in ("H", "p", "res_da", "states"))
+    rows, quc, q, d = (x[k] for k in ("rows", "quc", "q", "d"))
+    now, month = x["now"], x["month_i"]
+
+    def fused():
+        levelpool_cuda.levelpool_da_rows_cuda(H, quc, rows, DT, p, rd, st,
+                                              now, month, into=(q, d))
+
+    def block():
+        lp_out, lp_elev, lake_in = levelpool_cuda.levelpool_rows_cuda(
+            H, quc, rows, DT, p)
+        out, _, d_scat, *_ = rdl.plain_dispatch(
+            rd, st, H, lake_in, lp_out, lp_elev, now, month, p, DT)
+        q.index_put((rows,), out)
+        d.index_put((rows,), d_scat)
+
+    calls = {"fused": 200, "block": 20}
+    reps = {"fused": 2000, "block": 50}
+    levelpool_cuda.LAUNCHES = levelpool_cuda.DA_LAUNCHES = 0
+    fused()             # packs the parameters and the DA inputs
+    block()
+    torch.cuda.synchronize()
+    prof = {name: profile_window(lambda: [fn() for _ in range(calls[name])],
+                                 host_ops=False)
+            for name, fn in (("fused", fused), ("block", block))}
+    enqueue = {name: cuda_ms(fn, reps=reps[name])
+               for name, fn in (("fused", fused), ("block", block))}
+    # each side: one call before the profile, the profiled calls, the
+    # timed calls and cuda_ms's warm-up call
+    n_fused = 2 + calls["fused"] + reps["fused"]
+    expect((n_fused + 2 + calls["block"] + reps["block"], n_fused),
+           "the timed calls")
+    launches += n_fused
+    l1_read(n_fused + 2 + calls["block"] + reps["block"],
+            "phase 14's timed calls", 14)
+    if prof["fused"]["busy_ms"] is None:
+        ms = plain_ms = plain_kernels = None
+    else:
+        # one kernel a call; the profiler may drop an event of a run of
+        # short kernels, so the time is over the kernels it traced
+        traced = prof["fused"]["counts"]
+        name = next(iter(traced), "")
+        seen = traced.get(name, 0)
+        if len(traced) != 1 or "levelpool_da" not in name \
+                or not 0.99 * calls["fused"] <= seen <= calls["fused"]:
+            raise AssertionError(f"phase 14: the profiled DA-form calls "
+                                 f"traced {prof['fused']['counts']}")
+        ms = prof["fused"]["by_name"][name] / seen
+        plain_ms = sum(prof["block"]["by_name"].values()) / calls["block"]
+        plain_kernels = prof["block"]["launches"] / calls["block"]
+    n_bytes, walks = _da_bytes(x)
+    bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    log(f"phase 14: f32 DA row form, {n_res} lakes: L1's DA form "
+        f"{'not measured' if ms is None else f'{ms * 1e3:.2f} us'} of device "
+        f"time a call (profiler, {calls['fused']} calls), the wrapper "
+        f"enqueues one every {enqueue['fused'] * 1e3:.2f} us back to back "
+        f"(CUDA events); the plain block "
+        f"{'not measured' if plain_ms is None else f'{plain_ms * 1e3:.2f} us'}"
+        f" of device time over {plain_kernels} operations a call, one every "
+        f"{enqueue['block'] * 1e3:.2f} us back to back; bound "
+        f"{bound_ms * 1e3:.3f} us ({n_bytes} B, {n_bytes / n_res:.1f} B a "
+        f"lake, over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); values read a "
+        f"lake's walk, mean by kind {walks}  [{smi}]")
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes", enqueue_ms=enqueue["fused"],
+               plain_enqueue_ms=enqueue["block"], plain_kernels=plain_kernels,
+               bytes_per_lake=n_bytes / n_res, walks=walks, max_abs=max_abs,
+               launches=launches)
+    log(f"phase 14: {json.dumps(res)}")
+    return res
 
 
 def regional_network(n: int, n_basins: int, seed: int):
@@ -3474,7 +3763,7 @@ def main() -> int:
                     help="segments of phase 3's network (the default is "
                          "the checked size; another lists the f32 values "
                          "past 5e-2 of that size)")
-    ap.add_argument("--phases", default="2-13",
+    ap.add_argument("--phases", default="2-14",
                     help="phases to run after phase 1, as a range or a "
                          "comma list (e.g. 9,10); the default runs all, "
                          "and only a full run prints the result lines")
@@ -3491,7 +3780,7 @@ def main() -> int:
     for part in opts.phases.split(","):
         lo, _, hi = part.partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    full = phases >= set(range(2, 14)) and opts.engine_segments == 100_000
+    full = phases >= set(range(2, 15)) and opts.engine_segments == 100_000
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     device = "cuda:0"
     torch.cuda.set_device(device)
@@ -3504,6 +3793,9 @@ def main() -> int:
                                   baseline=baseline)
     if 13 in phases:
         lp = phase_levelpool(device, dev, n_res=N_CONUS_LAKES, n_nodes=N_CONUS)
+    if 14 in phases:
+        lpd = phase_levelpool_da(device, dev, n_res=N_CONUS_LAKES,
+                                 n_nodes=N_CONUS)
     if 3 in phases:
         phase_engine_card_vs_cpu(device, n=opts.engine_segments, nts=24)
     if phases & {4, 7}:
@@ -3595,6 +3887,20 @@ def main() -> int:
          **{k: lp[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "enqueue_ms", "plain_enqueue_ms",
                                "plain_kernels", "bytes_per_lake")},
+         "library_ms": None},
+        {"name": "levelpool_da", "route": "cuda",
+         "source": "troute_torch/csrc/levelpool.cu",
+         "replaces": "troute_torch/ops/levelpool.py:levelpool_step, "
+                     "troute_torch/ops/reservoir_da.py:"
+                     "typed_reservoir_dispatch and two index_put (no "
+                     "pallas_call: the JAX package's are XLA's)",
+         "launches": lpd["launches"],
+         "launches_by_path": {"phase 14": lpd["launches"]},
+         "max_abs_err": lpd["max_abs"],
+         **{k: lpd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "enqueue_ms", "plain_enqueue_ms",
+                                "plain_kernels", "bytes_per_lake",
+                                "walks")},
          "library_ms": None}],
         "cli": {k: c[k] for k in ("task_times", "route_seg_ts_s",
                                   "command_seg_ts_s", "stages")},

@@ -43,6 +43,7 @@ import torch
 
 import bench
 from chip_smoke import conus_range_inputs, warm_step_args
+from reservoir_da_lanes import da_lanes, plain_dispatch, same
 from troute_torch import synthetic
 from troute_torch.network.topology import build_topology_postorder
 from troute_torch.ops import muskingum_cuda
@@ -711,6 +712,214 @@ def test_levelpool_zero_lakes_and_checks(cuda):
     assert levelpool_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["lanes", "rows"])
+def test_levelpool_da_bits_match_plain_on_card(cuda, dtype, form):
+    """Kernel L1's DA form against kernel L1 without DA, then the plain
+    ``typed_reservoir_dispatch`` and, in the row form, ``index_put``, on
+    the same card, bit for bit (NaN where NaN): the outflow, elevation and
+    depth column (row form: the elevation and the two node tensors it
+    scatters into), and all nine DA state fields, on lakes that take every
+    branch of each DA kind and level-pool lakes
+    (``reservoir_da_lanes.BRANCHES``, rows in a scattered order); the
+    caller's states untouched; one launch, counted as a DA launch too."""
+    from troute_torch.ops import levelpool_cuda
+    x = da_lanes(dtype, cuda, per_branch=64, seed=5)
+    H, inflow, p, rd, st = (x[k] for k in ("H", "inflow", "p", "res_da",
+                                          "states"))
+    now, month, branch = x["now"], x["month_i"], x["branch"]
+    kept = [[f.clone() for f in s] for s in st]
+    n = H.shape[0]
+    before = (levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES)
+    if form == "rows":
+        rng = np.random.default_rng(9)
+        rows = torch.as_tensor(rng.choice(3 * n, n, replace=False),
+                               device=cuda)
+        quc, q, d = (torch.as_tensor(rng.uniform(0, 500, 3 * n), dtype=dtype,
+                                     device=cuda) for _ in range(3))
+        quc = quc.index_put((rows,), inflow)
+        q_in, d_in = q.clone(), d.clone()
+        elev, states = levelpool_cuda.levelpool_da_rows_cuda(
+            H, quc, rows, DT, p, rd, st, now, month, into=(q_in, d_in))
+        torch.cuda.synchronize()
+        after = (levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES)
+        lp_out, lp_elev, lake_in = levelpool_cuda.levelpool_rows_cuda(
+            H, quc, rows, DT, p)
+        got = (q_in[rows], elev, d_in[rows])
+    else:
+        *got, states = levelpool_cuda.levelpool_da_step_cuda(
+            H, inflow, DT, p, rd, st, now, month)
+        torch.cuda.synchronize()
+        after = (levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES)
+        lake_in = inflow
+        lp_out, lp_elev = levelpool_cuda.levelpool_step_cuda(
+            H, inflow, inflow, None, DT, p)
+    assert after == (before[0] + 1, before[1] + 1)
+    out, w_elev, d_scat, *w_states = plain_dispatch(
+        rd, st, H, lake_in, lp_out, lp_elev, now, month, p, DT)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, (out, w_elev, d_scat))):
+        off = ~((g == w) | (torch.isnan(g) & torch.isnan(w)))
+        assert same(g, w), (k, sorted(set(branch[off.cpu().numpy()])))
+    if form == "rows":
+        others = torch.ones(3 * n, dtype=torch.bool, device=cuda)
+        others[rows] = False
+        assert torch.equal(q_in[others], q[others])
+        assert torch.equal(d_in[others], d[others])
+    for gs, ws in zip(states, w_states):
+        for f, g, w in zip(gs._fields, gs, ws):
+            assert same(g, w), f
+    for s, k in zip(st, kept):
+        for f, c in zip(s, k):
+            assert same(f, c)
+
+
+def test_levelpool_da_zero_lakes_and_checks(cuda):
+    """No lakes: empty outputs and states and no launch.  The DA wrappers
+    raise, before any launch, on a state of another shape or dtype, a
+    float RFC index, a month outside the climatology, DA inputs of another
+    dtype or on the CPU, an observation matrix with no column, lake
+    tensors on the CPU, and the row form without ``into``."""
+    from troute_torch.ops import levelpool_cuda
+    x = da_lanes(torch.float32, cuda, per_branch=2)
+    H, inflow, p, rd, st = (x[k] for k in ("H", "inflow", "p", "res_da",
+                                          "states"))
+    now, month = x["now"], x["month_i"]
+    rows = torch.arange(H.shape[0], device=cuda)
+    quc = torch.ones(2 * H.shape[0], device=cuda)
+    into = (quc.clone(), quc.clone())
+    before = (levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES)
+    e = H[:0]
+    p0 = LevelpoolParams(*[c[:0] for c in p])
+    rd0 = rd._replace(**{f: getattr(rd, f)[:0] for f in rd._fields
+                         if f not in engine._RES_DA_SHARED})
+    st0 = tuple(type(s)(*[f[:0] for f in s]) for s in st)
+    got = levelpool_cuda.levelpool_da_step_cuda(e, e, DT, p0, rd0, st0, now,
+                                                month)
+    assert all(g.shape == (0,) for g in got[:3])
+    assert all(f.shape == (0,) for s in got[3] for f in s)
+    elev, states = levelpool_cuda.levelpool_da_rows_cuda(
+        e, quc, rows[:0], DT, p0, rd0, st0, now, month, into=into)
+    assert elev.shape == (0,) and states[1].timeseries_idx.dtype == torch.int32
+    hyb, rfc, gl = st
+    bad = [
+        dict(states=(hyb._replace(update_time=hyb.update_time[1:]), rfc, gl)),
+        dict(states=(hyb, rfc, gl._replace(update_time=gl.update_time.double()
+                                           ))),
+        dict(states=(hyb, rfc._replace(timeseries_idx=rfc.update_time), gl)),
+        dict(month_i=12),
+        dict(res_da=rd._replace(rfc_timestep=rd.rfc_timestep.double())),
+        dict(res_da=rd._replace(gl_climatology=rd.gl_climatology.cpu())),
+        dict(res_da=rd._replace(rfc_series=rd.rfc_series[:, :0])),
+    ]
+    for kw in bad:
+        args = dict(res_da=rd, states=st, now=now, month_i=month) | kw
+        with pytest.raises((ValueError, TypeError, IndexError)):
+            levelpool_cuda.levelpool_da_step_cuda(H, inflow, DT, p, **args)
+        with pytest.raises((ValueError, TypeError, IndexError)):
+            levelpool_cuda.levelpool_da_rows_cuda(H, quc, rows, DT, p,
+                                                  **args, into=into)
+    for call in (
+            lambda: levelpool_cuda.levelpool_da_step_cuda(
+                H, inflow.cpu(), DT, p, rd, st, now, month),
+            lambda: levelpool_cuda.levelpool_da_rows_cuda(
+                H, quc, rows.cpu(), DT, p, rd, st, now, month, into=into),
+            lambda: levelpool_cuda.levelpool_da_rows_cuda(
+                H, quc, rows, DT, p, rd, st, now, month, into=None)):
+        with pytest.raises(ValueError):
+            call()
+    torch.cuda.synchronize()
+    assert (levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES) == before
+
+
+def _on(obj, device):
+    """Tensors of ``obj`` (nested named tuples and tuples) on ``device``,
+    the host month table excepted."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if hasattr(obj, "_fields"):
+        return type(obj)(*[v if f == "month_idx" else _on(v, device)
+                           for f, v in zip(obj._fields, obj)])
+    if isinstance(obj, tuple):
+        return tuple(_on(v, device) for v in obj)
+    return obj
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hourly_da_on_card_equals_the_plain_block(cuda, dtype, monkeypatch):
+    """NWM's analysis hours on the card (``test_torch_da_hourly.Case``:
+    gages, persistence, RFC and Great Lakes lakes): two 1-hour
+    ``route_stepped`` calls joined by ``da_handoff`` with the DA form of
+    kernel L1, and the same with the engine's lake block as it was before
+    it (kernel L1's row form, the plain ``typed_reservoir_dispatch`` and
+    out-of-place ``index_put`` on the card): flows, nudges, states and the
+    DA handed on, bit for bit (NaN where NaN).  One DA launch a step, by
+    the wrapper's count and, under a profiler, by
+    ``engine.reservoir_da_launches``; the caller's ``*_state0`` tensors
+    unchanged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import test_torch_da_hourly as hourly
+    from troute_torch import tracing
+    from troute_torch.ops import levelpool_cuda
+    c = hourly.Case(3, dtype)
+    da, res = _on(c.program_da(), cuda)
+    kept = _on((res.hybrid_state0, res.rfc_state0, res.gl_state0), "cpu")
+    net = engine.network_arrays_from_topology(c.topo, device=cuda)
+    chan, lp = _on(c.chan, cuda), _on(c.lp, cuda)
+    ql = c.ql[:, c.canon].to(cuda)
+    q0, d0, e0 = (a.to(cuda) for a in c.start())
+    cfg = engine.RoutingConfig(dt=hourly.DT, nts=hourly.STEPS,
+                               qts_subdivisions=hourly.STEPS,
+                               assume_short_ts=True)
+
+    def two_hours():
+        first = engine.route_stepped(net, chan, lp, cfg, q0, d0, e0, ql, da,
+                                     res)
+        st = first["state"]
+        da1, res1 = engine.da_handoff(da, res, st, hourly.STEPS, hourly.HOUR)
+        second = engine.route_stepped(net, chan, lp, cfg, st.q, st.depth,
+                                      st.res_elev, ql[1:], da1, res1)
+        return (first, second,
+                engine.da_handoff(da1, res1, second["state"], hourly.STEPS,
+                                  hourly.HOUR))
+
+    tracing.drain()
+    before = levelpool_cuda.DA_LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = two_hours()
+        torch.cuda.synchronize()
+    assert levelpool_cuda.DA_LAUNCHES - before == 2 * hourly.STEPS
+    assert tracing.drain()[1]["engine.reservoir_da_launches"] \
+        == 2 * hourly.STEPS
+    hourly._equal_da(_on((res.hybrid_state0, res.rfc_state0, res.gl_state0),
+                         "cpu"), kept, "caller's states")
+
+    def plain_block(H, quc, rows, dt, p, res_da, states, now, month_i, *,
+                    into):
+        lp_out, lp_elev, inflow = levelpool_cuda.levelpool_rows_cuda(
+            H, quc, rows, dt, p)
+        out, elev, d_scat, *states = plain_dispatch(
+            res_da, states, H, inflow, lp_out, lp_elev, now, month_i, p, dt)
+        for a, v in zip(into, (out, d_scat)):
+            a.copy_(a.index_put((rows,), v))
+        return elev, tuple(states)
+
+    monkeypatch.setattr(engine, "levelpool_da_rows_cuda", plain_block)
+    want = two_hours()
+    torch.cuda.synchronize()
+    assert levelpool_cuda.DA_LAUNCHES - before == 2 * hourly.STEPS
+    for h in range(2):
+        for k in ("flowveldepth", "nudge"):
+            hourly._equal(got[h][k], want[h][k], f"hour {h} {k}")
+        hourly._equal_da(got[h]["state"], want[h]["state"], f"hour {h}")
+    hourly._equal_da(got[2], want[2], "handed on")
+    st = got[1]["state"]
+    assert (st.rfc.timeseries_idx > 28).any()
+    assert torch.isfinite(st.hybrid.persisted_outflow).any()
+    assert torch.isfinite(st.gl.assimilated_outflow).any()
+
+
 def _lake_route_case(n, n_res, seed):
     """A CONUS-like network (``synthetic_conus``) with ``n_res`` lakes on
     segments that have an upstream, and its channel, lake and forcing
@@ -766,10 +975,11 @@ def test_route_with_lakes_on_card_equals_the_plain_level_pool(
     """12 short steps of a 20,000-segment CONUS-like network with 200 lakes
     on the card, with the level-pool kernel and with the engine's lake
     block as it was before the kernel (``quc[res_rows]``, the plain
-    ``levelpool_step`` with zero lateral inflow, out-of-place
-    ``index_put`` of the outflow and depth): the same arrays, bit for bit.
-    One launch of the kernel a step, counted by the wrapper and, under a
-    profiler, by ``engine.levelpool_launches``."""
+    ``levelpool_step`` with zero lateral inflow, with DA the plain
+    ``typed_reservoir_dispatch``, out-of-place ``index_put`` of the
+    outflow and depth): the same arrays, bit for bit.  One launch of the
+    kernel a step (its DA form with DA), counted by the wrapper and, under
+    a profiler, by ``engine.levelpool_launches``."""
     from torch.profiler import ProfilerActivity, profile
 
     from troute_torch import tracing
@@ -795,7 +1005,17 @@ def test_route_with_lakes_on_card_equals_the_plain_level_pool(
             a.copy_(a.index_put((rows,), v))
         return h_new
 
+    def plain_da_rows(H, quc, rows, dt, p, res_da, states, now, month_i, *,
+                      into):
+        lp_out, lp_elev, inflow = plain_rows(H, quc, rows, dt, p)
+        out, elev, d_scat, *states = plain_dispatch(
+            res_da, states, H, inflow, lp_out, lp_elev, now, month_i, p, dt)
+        for a, v in zip(into, (out, d_scat)):
+            a.copy_(a.index_put((rows,), v))
+        return elev, tuple(states)
+
     monkeypatch.setattr(engine, "levelpool_rows_cuda", plain_rows)
+    monkeypatch.setattr(engine, "levelpool_da_rows_cuda", plain_da_rows)
     want = _lake_route(case, dtype, cuda, nts, with_da)
     torch.cuda.synchronize()
     assert levelpool_cuda.LAUNCHES - before == nts

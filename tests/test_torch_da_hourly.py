@@ -250,6 +250,56 @@ def test_the_hand_off_re_bases_every_clock_and_keeps_the_months_tail():
     assert engine.da_handoff(None, None, st, STEPS, HOUR) == (None, None)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_one_short_step_with_da_is_the_plain_block_on_cpu(dtype):
+    """``_one_short_step`` with DA on the CPU, whose lakes go through the DA
+    form of the level-pool wrapper (its plain version for CPU tensors),
+    step after step: bit for bit (NaN where NaN) the block it replaced,
+    the lakes' inflow gather ``quc[res_rows]``, the plain level pool,
+    ``typed_reservoir_dispatch``, out-of-place ``index_put`` of the outflow
+    and the depth column into the MC result, then nudging; no launch."""
+    from reservoir_da_lanes import plain_dispatch
+    from troute_torch.ops import levelpool_cuda
+    from troute_torch.ops.levelpool import levelpool_step
+    c = Case(6, dtype)
+    da, res = c.program_da()
+    net, lp = c.prog_net, c.lp
+    q, d, e = c.start()
+    lo_val, lo_time = da.lastobs_val, da.lastobs_time
+    states = (res.hybrid_state0, res.rfc_state0, res.gl_state0)
+    ql = c.ql[0][c.canon]
+    real = torch.empty(0, dtype=dtype).numpy().dtype.type
+    before = (levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES)
+    for t in range(1, 5):
+        now = float(real(t) * real(DT))
+        month = int(res.month_idx[t])
+        got = engine._one_short_step(
+            q, d, e, lo_val, lo_time, ql, da.obs[t], now, net.upstream,
+            c.chan, lp, net.is_reservoir, net.res_rows, da.rows,
+            da.decay_coeff, DT, res_da=res, da_states=states, month_i=month,
+            uplan=net.uplan, want_raw=True)
+        raw = got[-1]
+        inflow = engine._upstream_sum_stepped(q, net.upstream,
+                                              net.uplan)[net.res_rows]
+        lp_out, lp_elev = levelpool_step(e, inflow, inflow,
+                                         torch.zeros_like(inflow), DT, lp)
+        out, elev, d_scat, *want_states = plain_dispatch(
+            res, states, e, inflow, lp_out, lp_elev, now, month, lp, DT)
+        is_res = net.is_reservoir
+        want_q = torch.where(is_res, q, raw.qdc).index_put((net.res_rows,),
+                                                           out)
+        want_d = torch.where(is_res, d, raw.depthc).index_put(
+            (net.res_rows,), d_scat)
+        want_q, nudge, want_lv, want_lt = engine._apply_nudging(
+            want_q, da.rows, now, da.decay_coeff, lo_val, lo_time, da.obs[t])
+        for k, w in ((0, want_q), (2, want_d), (3, elev), (4, want_lv),
+                     (5, want_lt), (6, nudge)):
+            _equal(got[k], w, f"step {t} output {k}")
+        _equal_da(got[7], tuple(want_states), f"step {t} states")
+        q, _, d, e, lo_val, lo_time, _, states = got[:8]
+    assert (levelpool_cuda.LAUNCHES, levelpool_cuda.DA_LAUNCHES) == before
+
+
 def _reference(c, dtype):
     net = c.net
     return rda.Network(

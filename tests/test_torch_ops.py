@@ -10,6 +10,9 @@ these updates are well-conditioned, so the last-ulp differences of
 on the golden hydrograph, 20 ulps, against JAX's f32 trajectory.
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -216,6 +219,164 @@ def test_levelpool_params_packed_once_per_set(dtype):
     for _ in range(lpc._PACKED_KEEP + 1):
         lpc._packed(tlp.LevelpoolParams(*[c.clone() for c in p]), H)
     assert len(lpc._PACKED) <= lpc._PACKED_KEEP
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_levelpool_da_wrapper_is_the_plain_version_on_cpu(dtype):
+    """The DA form of ``ops/levelpool_cuda.py`` on CPU tensors, on lakes
+    that take every branch of each DA kind (``reservoir_da_lanes``): the
+    lane form is the plain level pool (inflow as both ``qi0`` and ``qi1``,
+    no lateral inflow) then ``typed_reservoir_dispatch``, the row form the
+    same at ``quc[rows]`` with ``index_put`` of the outflow and the depth
+    column into ``into``, bit for bit (NaN where NaN); the caller's states
+    are not written, and no launch is counted, by the wrapper or, under a
+    profiler, by ``engine.levelpool_launches`` or
+    ``engine.reservoir_da_launches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import reservoir_da_lanes as rdl
+    from troute_torch import tracing
+    from troute_torch.ops import levelpool_cuda as lpc
+    x = rdl.da_lanes(dtype, "cpu", per_branch=4, seed=7)
+    H, inflow, p, rd, st = (x[k] for k in ("H", "inflow", "p", "res_da",
+                                          "states"))
+    now, month = x["now"], x["month_i"]
+    kept = [[f.clone() for f in s] for s in st]
+    n = H.shape[0]
+    rng = np.random.default_rng(33)
+    rows = torch.as_tensor(rng.choice(3 * n, n, replace=False))
+    quc = _t(rng.uniform(0, 500, 3 * n), dtype).index_put((rows,), inflow)
+    q, d = (_t(rng.uniform(0, 500, 3 * n), dtype) for _ in range(2))
+    q_in, d_in = q.clone(), d.clone()
+    tracing.drain()
+    before = (lpc.LAUNCHES, lpc.DA_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU]):
+        lanes = lpc.levelpool_da_step_cuda(H, inflow, DT, p, rd, st, now,
+                                           month)
+        by_rows = lpc.levelpool_da_rows_cuda(H, quc, rows, DT, p, rd, st,
+                                             now, month, into=(q_in, d_in))
+    assert (lpc.LAUNCHES, lpc.DA_LAUNCHES) == before
+    counts = tracing.drain()[1]
+    assert "engine.levelpool_launches" not in counts
+    assert "engine.reservoir_da_launches" not in counts
+    lp_out, lp_elev = tlp.levelpool_step(H, inflow, inflow,
+                                         torch.zeros_like(inflow), DT, p)
+    out, elev, d_scat, *states = rdl.plain_dispatch(
+        rd, st, H, inflow, lp_out, lp_elev, now, month, p, DT)
+    for g, w in zip(lanes[:3], (out, elev, d_scat)):
+        assert rdl.same(g, w)
+    assert rdl.same(by_rows[0], elev)
+    assert rdl.same(q_in, q.index_put((rows,), out))
+    assert rdl.same(d_in, d.index_put((rows,), d_scat))
+    for got in (lanes[3], by_rows[1]):
+        for gs, ws in zip(got, states):
+            for g, w in zip(gs, ws):
+                assert rdl.same(g, w)
+    for s, k in zip(st, kept):
+        for f, c in zip(s, k):
+            assert rdl.same(f, c)
+    # each kind moved its own state
+    wt = rd.wbody_type
+    hyb, rfc, gl = lanes[3]
+    assert not torch.equal(hyb.update_time[wt == 2],
+                           st[0].update_time[wt == 2])
+    assert not torch.equal(rfc.timeseries_idx[wt == 4],
+                           st[1].timeseries_idx[wt == 4])
+    assert not torch.equal(gl.update_time[wt == 6],
+                           st[2].update_time[wt == 6])
+    with pytest.raises(ValueError):
+        lpc.levelpool_da_rows_cuda(H, quc, rows, DT, p, rd, st, now, month,
+                                   into=None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_levelpool_da_inputs_packed_once_per_data(dtype):
+    """What the DA form hands the kernel, on CPU tensors: the DA inputs'
+    pointers, strides and counts (the struct ``csrc/levelpool.cu`` reads),
+    packed once per DA data object and again after an in-place write or
+    for other lakes; integer types and flags of another width converted;
+    the state fields' pointers in the kernel's order, the caller's tensors
+    untouched; the month as Python indexes it; and the checks that raise
+    before any launch."""
+    import reservoir_da_lanes as rdl
+    from troute_torch.ops import levelpool_cuda as lpc
+    x = rdl.da_lanes(dtype, "cpu", per_branch=2, seed=8)
+    H, rd, st = x["H"], x["res_da"], x["states"]
+    da, months = lpc._da_packed(rd, H)
+    assert months == 12 and da.n_hobs == rdl.N_HOBS
+    assert da.n_counts == rdl.N_COUNTS and da.n_gobs == rdl.N_GOBS
+    assert da.wbody_type == rd.wbody_type.data_ptr()
+    assert da.hyb_obs == rd.hybrid_obs.data_ptr()
+    assert (da.hyb_obs_s0, da.hyb_obs_s1) == rd.hybrid_obs.stride()
+    assert (da.gl_time_s0, da.gl_time_s1) == rd.gl_obs_time.stride()
+    assert da.lookback_s == rd.obs_lookback_hours * 3600.0
+    assert lpc._da_packed(rd, H)[0] is da
+    rd.rfc_series.mul_(2.0)
+    again = lpc._da_packed(rd, H)[0]
+    assert again is not da and again.rfc_series == rd.rfc_series.data_ptr()
+    # a column view of a wider matrix keeps its strides
+    wide = torch.cat([rd.hybrid_obs, rd.hybrid_obs], dim=1)[:, ::2]
+    view = lpc._da_packed(rd._replace(hybrid_obs=wide), H)[0]
+    assert (view.hyb_obs, view.hyb_obs_s0, view.hyb_obs_s1) == (
+        wide.data_ptr(), 2 * rdl.N_HOBS, 2)
+    wide64 = rd._replace(wbody_type=rd.wbody_type.long(),
+                         rfc_use=rd.rfc_use.to(torch.uint8))
+    t = lpc._da_tensors(wide64, H)
+    assert t["wbody_type"].dtype == torch.int32
+    assert torch.equal(t["wbody_type"], rd.wbody_type)
+    assert t["rfc_use"].dtype == torch.bool
+    assert torch.equal(t["rfc_use"], rd.rfc_use)
+    other = torch.float32 if dtype == F64 else F64
+    bad_da = [
+        rd._replace(wbody_type=rd.wbody_type.to(dtype)),
+        rd._replace(rfc_counts=rd.rfc_counts[1:]),
+        rd._replace(rfc_timestep=rd.rfc_timestep.to(other)),
+        rd._replace(hybrid_obs=rd.hybrid_obs[:, :0],
+                    hybrid_obs_time=rd.hybrid_obs_time[:0]),
+        rd._replace(hybrid_obs_time=rd.hybrid_obs_time[1:]),
+        rd._replace(rfc_series=rd.rfc_series.to(other)),
+        rd._replace(gl_obs=rd.gl_obs[:, :0],
+                    gl_obs_time=rd.gl_obs_time[:, :0]),
+        rd._replace(gl_obs_time=rd.gl_obs_time[:, 1:]),
+        rd._replace(gl_climatology=rd.gl_climatology[1:]),
+    ]
+    for bad in bad_da:
+        with pytest.raises(ValueError):
+            lpc._da_packed(bad, H)
+    with pytest.raises(ValueError):
+        lpc._da_packed(rd, H[1:])
+    # only the data packed last is kept: the one before is freed
+    hour = rd._replace(hybrid_obs=rd.hybrid_obs.clone())
+    lpc._da_packed(hour, H)
+    freed = weakref.ref(hour.hybrid_obs)
+    del hour
+    lpc._da_packed(rd, H)
+    gc.collect()
+    assert freed() is None
+
+    assert [lpc._month(m, 12) for m in (0, 4, 11, -1, -12)] == [0, 4, 11, 11,
+                                                                0]
+    for m in (12, -13):
+        with pytest.raises(IndexError):
+            lpc._month(m, 12)
+
+    hyb, rfc, gl = st
+    ptrs, keep = lpc._state_ptrs(st, H)
+    assert ptrs == [a.data_ptr() for a in (*hyb, rfc.timeseries_idx,
+                                           rfc.update_time, *gl)]
+    idx64 = rfc.timeseries_idx.long()
+    strided = torch.stack([hyb.update_time, hyb.update_time], dim=1)[:, 0]
+    ptrs, keep = lpc._state_ptrs(
+        (hyb._replace(update_time=strided), rfc._replace(timeseries_idx=idx64),
+         gl), H)
+    assert keep[4].dtype == torch.int32 and torch.equal(keep[4], idx64.int())
+    assert keep[1].is_contiguous() and torch.equal(keep[1], strided)
+    assert idx64.dtype == torch.int64 and not strided.is_contiguous()
+    for bad in ((hyb._replace(update_time=hyb.update_time[1:]), rfc, gl),
+                (hyb, rfc._replace(timeseries_idx=rfc.update_time), gl),
+                (hyb, rfc, gl._replace(update_time=gl.update_time.to(other)))):
+        with pytest.raises(ValueError):
+            lpc._state_ptrs(bad, H)
 
 
 def _hybrid_obs(rng, n_lanes, n_obs):

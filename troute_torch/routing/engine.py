@@ -42,12 +42,14 @@ import torch
 
 from troute_torch.network.topology import NODE_RESERVOIR
 from troute_torch.ops.levelpool import LevelpoolParams
-from troute_torch.ops.levelpool_cuda import (levelpool_rows_cuda,
+from troute_torch.ops.levelpool_cuda import (levelpool_da_rows_cuda,
+                                             levelpool_da_step_cuda,
+                                             levelpool_rows_cuda,
                                              levelpool_step_cuda)
 from troute_torch.ops.muskingum_cuda import (block_active_lanes,
                                              muskingum_cunge_cuda)
-from troute_torch.ops.reservoir_da import (
-    GreatLakesDAState, HybridDAState, RfcDAState, typed_reservoir_dispatch)
+from troute_torch.ops.reservoir_da import (GreatLakesDAState, HybridDAState,
+                                           RfcDAState)
 from troute_torch.routing.upstream_plan import (UpstreamOp, build_upstream_plan,
                                                 remainder_add)
 from troute_torch.tracing import count, device_allocs, span
@@ -352,34 +354,17 @@ def _reservoirs(res_params: LevelpoolParams, res_da, res_elev, inflow,
                 da_states, t_seconds: float, month_i, dt: float):
     """Level pool, then the typed reservoir DA when ``res_da`` is given
     (``mc_reach.pyx:507-717``), on reservoir lanes that see ``inflow``:
-    (outflow, elevation, the depth column's value, DA states)."""
-    lp_out, lp_elev = levelpool_step_cuda(res_elev, inflow, inflow, None, dt,
-                                          res_params)
-    return _reservoir_da(res_params, res_da, res_elev, inflow, lp_out,
-                         lp_elev, da_states, t_seconds, month_i, dt)
-
-
-def _reservoir_da(res_params: LevelpoolParams, res_da, res_elev, inflow,
-                  lp_out, lp_elev, da_states, t_seconds: float, month_i,
-                  dt: float):
-    """The typed reservoir DA on the level pool's result (``lp_out``,
-    ``lp_elev``), or that result itself when ``res_da`` is None: (outflow,
-    elevation, the depth column's value, DA states)."""
+    (outflow, elevation, the depth column's value, DA states).  On the card
+    one launch of kernel L1's lane form; with DA, of its DA form, inside
+    the span ``engine.reservoir_da``."""
     if res_da is None:
+        lp_out, lp_elev = levelpool_step_cuda(res_elev, inflow, inflow, None,
+                                              dt, res_params)
         return lp_out, lp_elev, lp_elev, da_states
-    hyb_s, rfc_s, gl_s = da_states
-    # every DA kind is computed, masked, on every reservoir lane
     with span("engine.reservoir_da"):
-        count("engine.reservoir_da_lanes", res_da.wbody_type.shape[0])
-        outflow, elev, d_scat, hyb_s, rfc_s, gl_s = typed_reservoir_dispatch(
-            res_da.wbody_type, res_da.hybrid_obs, res_da.hybrid_obs_time,
-            hyb_s, res_da.rfc_series, res_da.rfc_counts, res_da.rfc_use,
-            res_da.rfc_timestep, res_da.rfc_persist_seconds, rfc_s,
-            res_da.gl_obs, res_da.gl_obs_time, res_da.gl_climatology, gl_s,
-            res_da.obs_lookback_hours, res_elev, inflow, lp_out, lp_elev,
-            t_seconds, month_i, res_params.area, res_params.max_depth,
-            res_params.orifice_elev, dt)
-    return outflow, elev, d_scat, (hyb_s, rfc_s, gl_s)
+        count("engine.reservoir_da_lanes", res_elev.shape[0])
+        return levelpool_da_step_cuda(res_elev, inflow, dt, res_params,
+                                      res_da, da_states, t_seconds, month_i)
 
 
 def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
@@ -423,20 +408,18 @@ def _one_short_step(q, depth, res_elev, lo_val, lo_time, ql_t, obs_t,
     if res_rows.shape[0]:
         with span("engine.reservoirs"):
             # one launch on the card: the lakes' inflow gather, the level
-            # pool and, without DA, the scatter into q_new and d_new (fresh
-            # tensors of the torch.where above)
+            # pool, the typed DA when given, and the scatter into q_new and
+            # d_new (fresh tensors of the torch.where above)
             if res_da is None:
                 res_elev = levelpool_rows_cuda(res_elev, quc, res_rows, dt,
                                                res_params,
                                                into=(q_new, d_new))
             else:
-                lp_out, lp_elev, inflow = levelpool_rows_cuda(
-                    res_elev, quc, res_rows, dt, res_params)
-                outflow, res_elev, d_scat, da_states = _reservoir_da(
-                    res_params, res_da, res_elev, inflow, lp_out, lp_elev,
-                    da_states, t_seconds, month_i, dt)
-                q_new = q_new.index_put((res_rows,), outflow)
-                d_new = d_new.index_put((res_rows,), d_scat)
+                with span("engine.reservoir_da"):
+                    count("engine.reservoir_da_lanes", res_rows.shape[0])
+                    res_elev, da_states = levelpool_da_rows_cuda(
+                        res_elev, quc, res_rows, dt, res_params, res_da,
+                        da_states, t_seconds, month_i, into=(q_new, d_new))
 
     nudge = q.new_zeros(gage_rows.shape[0])
     if gage_rows.shape[0]:

@@ -31,14 +31,18 @@ and ``engine.collect`` again around the final stacks of the result.  With
 data assimilation: ``engine.reservoir_da`` (the typed reservoir DA,
 inside ``engine.reservoirs``), ``engine.nudge`` (gage nudging) and
 ``engine.da_handoff`` (the DA inputs of the next window), each entered
-only when its DA data is given.
+only when its DA data is given; ``engine.reservoir_da`` wraps the lakes'
+whole level pool and DA, on a card one launch of the level-pool kernel's
+DA form.
 Counters: ``cuda.device_allocs``, the caching allocator's device
 allocations (``cudaMalloc``) made inside ``engine.route`` on a CUDA
 device; ``engine.nudge_lanes`` and ``engine.reservoir_da_lanes``, the
 gage lanes nudged and the reservoir lanes the typed DA computes, added
 each step (from shapes: no device read); ``engine.levelpool_launches``,
 the launches of the level-pool kernel (``ops/levelpool_cuda.py``), one a
-step with lakes on a card and none on the CPU.
+step with lakes on a card and none on the CPU; and
+``engine.reservoir_da_launches``, those of its DA form alone, one a step
+with lakes and DA on a card and none on the CPU.
 """
 
 from __future__ import annotations
